@@ -1,0 +1,157 @@
+"""Building-block modules (counterpart of ``confignet_tpu/models/blocks.py``).
+
+Parity notes vs the reference (confignet/dnn_models/building_blocks.py):
+
+- Keras ``LeakyReLU()`` defaults to slope 0.3; the AdaIN MLPs use 0.2
+  (hologan_generator.py:21).  The slopes are passed explicitly below.
+- Dense/Conv kernels are glorot-uniform, biases zero.
+- ``MLP`` with ``num_layers=N`` means N-1 hidden (Dense + LeakyReLU) layers
+  followed by a final Dense (building_blocks.py:152-173).
+- In bf16 mode every Dense/Conv casts its input and parameters to the
+  compute dtype, as flax ``promote_dtype`` does.
+
+Module attributes carry the flax module names (``dense_0``, ``conv_0``,
+``adain``, ``mlp``), so JAX checkpoints map onto them by path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from confignet_tpu_torch.core.initializers import init_kernel_
+from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last, promote
+from confignet_tpu_torch.ops.norms import adain_modulate
+from confignet_tpu_torch.ops.upconv import UpConv
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.3) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: kernel (in, out) there, (out, in) here."""
+
+    def __init__(self, in_features: int, features: int, dtype: Optional[torch.dtype] = None,
+                 kernel_init: str = "glorot_uniform"):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init_kernel_(self.weight, self.kernel_init, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
+        return F.linear(x, weight, bias)
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` on (B, H, W, C): kernel HWIO there, OIHW here;
+    ``padding`` "SAME" (TF rule) or "VALID"."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
+                 stride: int = 1, padding: str = "SAME", dtype: Optional[torch.dtype] = None,
+                 kernel_init: str = "glorot_uniform"):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+        self.weight = nn.Parameter(torch.empty(features, in_features, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init_kernel_(self.weight, self.kernel_init, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
+        return conv_channels_last(x, weight, bias, stride=self.stride, padding=self.padding)
+
+
+class MLP(nn.Module):
+    """Generic Dense/LeakyReLU stack (reference ``MLPSimple``)."""
+
+    def __init__(self, num_layers: int, num_in: int, num_hidden: int, num_out: int,
+                 negative_slope: float = 0.3, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.negative_slope = negative_slope
+        dims = [num_in] + [num_hidden] * (num_layers - 1) + [num_out]
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}", Dense(dims[i], dims[i + 1], dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if i < self.num_layers - 1:
+                x = leaky_relu(x, self.negative_slope)
+        return x
+
+
+class AdaIN(nn.Module):
+    """Adaptive instance norm: an MLP maps z to per-channel (scale, bias);
+    the input is instance-normalised over its spatial axes and modulated with
+    ``x * (scale + 1) + bias`` (reference: building_blocks.py:114-149).
+    ``adain_impl`` selects the fused kernel or its plain version
+    (ops/norms.adain_modulate)."""
+
+    def __init__(self, num_features: int, z_dim: int, mlp_num_units: int, mlp_num_layers: int,
+                 dtype: Optional[torch.dtype] = None, adain_impl: str = "auto"):
+        super().__init__()
+        self.num_features = num_features
+        self.adain_impl = adain_impl
+        self.mlp = MLP(mlp_num_layers, z_dim, mlp_num_units, num_features * 2,
+                       negative_slope=0.2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        # The reference reshapes the MLP output to (B, 2, C): scale first.
+        params = self.mlp(z).reshape(x.shape[0], 2, self.num_features)
+        scale, bias = params[:, 0], params[:, 1]
+        return adain_modulate(x, scale, bias, tuple(range(1, x.ndim - 1)), impl=self.adain_impl)
+
+
+class ConvAdaIN(nn.Module):
+    """(Up)conv -> LeakyReLU -> AdaIN, rank-generic (2D and 3D).
+
+    Reference: ``Conv2dAdaIn``/``Conv3dAdaIn`` (building_blocks.py:11-80).
+    ``pre_upsample`` absorbs the preceding nearest-2x upsample into the conv
+    (ops/upconv.py).  ``double_conv`` inserts a second conv.
+    """
+
+    def __init__(self, in_features: int, num_feature_maps: int, kernel_size: int, rank: int,
+                 z_dim: int, mlp_num_units: int, mlp_num_layers: int, double_conv: bool = False,
+                 conv_negative_slope: float = 0.3, dtype: Optional[torch.dtype] = None,
+                 pre_upsample: bool = False, upconv_impl: str = "auto",
+                 adain_impl: str = "auto"):
+        super().__init__()
+        self.conv_negative_slope = conv_negative_slope
+        ksize = (kernel_size,) * rank
+
+        def conv(cin):
+            if rank == 3:
+                return Conv3d(cin, num_feature_maps, ksize, dtype=dtype)
+            return Conv2d(cin, num_feature_maps, ksize, dtype=dtype)
+
+        if pre_upsample:
+            self.conv_0 = UpConv(in_features, num_feature_maps, ksize, dtype=dtype, impl=upconv_impl)
+        else:
+            self.conv_0 = conv(in_features)
+        self.conv_1 = conv(num_feature_maps) if double_conv else None
+        self.adain = AdaIN(num_feature_maps, z_dim, mlp_num_units, mlp_num_layers,
+                           dtype=dtype, adain_impl=adain_impl)
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        x = self.conv_0(x)
+        if self.conv_1 is not None:
+            x = self.conv_1(leaky_relu(x, self.conv_negative_slope))
+        x = leaky_relu(x, self.conv_negative_slope)
+        return self.adain(x, z)

@@ -1,0 +1,154 @@
+"""Batch serving pipeline: encode -> splice -> generate on one GPU
+(counterpart of ``confignet_tpu/serving.py``).
+
+uint8 photos in, uint8 renders out; the attribute splice happens on the
+device between the encoder and the generator, and the uint8 conversion of
+the renders is done on the device too, so only 1 byte per pixel crosses back
+to the host.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from confignet_tpu_torch.core.device import resolve_device
+
+
+class ConfigNetServer:
+    """Serving front-end over a ConfigNet (and optionally a LatentGAN, whose
+    port comes with a later slice).
+
+    ``chunk`` is the device batch: every request is cut into chunks of this
+    size, the last one padded by repeating its last row.
+
+    **Snapshot semantics**: the weights are deep-copied at construction, so
+    training or fine-tuning the wrapped model afterwards does not change
+    what the server renders.  :meth:`refresh` takes a new snapshot.
+    """
+
+    def __init__(self, confignet, latent_gan=None, chunk: int = 32,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.confignet = confignet
+        self.latent_gan = latent_gan
+        self.chunk = int(chunk)
+        self.device = resolve_device(device)
+        self.refresh()
+
+    def refresh(self) -> None:
+        """Re-snapshot the wrapped model's current weights (e.g. after
+        further training or a fine-tune)."""
+        model = self.confignet
+
+        def snap(module):
+            return copy.deepcopy(module).to(self.device).eval()
+
+        self._encoder = snap(model.real_encoder)
+        self._generator = snap(model._inference_generator())
+        self._synthetic_encoder = snap(model.synthetic_encoder)
+
+    # -- building blocks (run on the device) ----------------------------
+
+    def _encode(self, images: torch.Tensor):
+        if images.dtype.is_floating_point:
+            floats = images.float()
+        else:
+            floats = images.float() / 127.5 - 1.0
+        return self._encoder(floats)
+
+    def _splice(self, latents: torch.Tensor, param_name: str, value: torch.Tensor) -> torch.Tensor:
+        encoded = self._synthetic_encoder.encode_single_param(param_name, value)
+        idxs = self.confignet.get_facemodel_param_idxs_in_latent(param_name)
+        latents = latents.clone()
+        latents[:, idxs.start:idxs.stop] = encoded.to(latents.dtype)
+        return latents
+
+    def _generate(self, latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+        out = self._generator(latents, rotations)
+        return ((torch.clamp(out.float(), -1, 1) + 1) * 127.5).to(torch.uint8)
+
+    # -- public API ------------------------------------------------------
+
+    @torch.inference_mode()
+    def _chunked(self, fn: Callable, arrays: Sequence[np.ndarray], extra=()):
+        """Pad the leading axis to ``chunk``, run ``fn`` per chunk on the
+        device, strip the padding.  ``extra`` tensors pass through whole."""
+        n = arrays[0].shape[0]
+        outs = []
+        for start in range(0, n, self.chunk):
+            pieces = []
+            for arr in arrays:
+                piece = arr[start:start + self.chunk]
+                pad = self.chunk - piece.shape[0]
+                if pad:
+                    piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
+                pieces.append(torch.from_numpy(np.ascontiguousarray(piece)).to(self.device))
+            out = fn(*pieces, *extra)
+            outs.append(out if isinstance(out, tuple) else (out,))
+
+        def cat(i):
+            host = [o[i].float().cpu().numpy() if o[i].is_floating_point() else o[i].cpu().numpy()
+                    for o in outs]
+            return np.concatenate(host)[:n]
+
+        result = tuple(cat(i) for i in range(len(outs[0])))
+        return result if len(result) > 1 else result[0]
+
+    def encode(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """uint8 (or [-1, 1] float) photos -> float32 (latents, rotations)."""
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = images[np.newaxis]
+        return self._chunked(self._encode, [images])
+
+    def generate(self, latents, rotations) -> np.ndarray:
+        """Latents + rotations -> uint8 images."""
+        return self._chunked(self._generate, [np.asarray(latents, np.float32),
+                                              np.asarray(rotations, np.float32)])
+
+    def render_with_attribute(self, images, param_name: str, param_value,
+                              rotations: Optional[np.ndarray] = None) -> np.ndarray:
+        """Encode photos, splice one face-model attribute into the latents on
+        the device, re-render.  ``param_value`` is one row (broadcast) or one
+        row per image; ``rotations`` overrides the encoder's predicted pose."""
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = images[np.newaxis]
+        value = np.asarray(param_value, np.float32)
+        if value.ndim == 1:
+            value = value[np.newaxis]
+        if value.shape[0] not in (1, images.shape[0]):
+            raise ValueError(
+                f"param_value batch dim {value.shape[0]} must be 1 (broadcast) "
+                f"or match the image batch {images.shape[0]}")
+        # A per-image value batch is chunked alongside the images; a single
+        # broadcast row rides through whole.
+        per_image = value.shape[0] == images.shape[0] and images.shape[0] != 1
+        chunked = [value] if per_image else []
+        extra = () if per_image else (torch.from_numpy(value).to(self.device),)
+
+        if rotations is None:
+            def pipeline(imgs, value):
+                latents, rots = self._encode(imgs)
+                return self._generate(self._splice(latents, param_name, value), rots)
+
+            return self._chunked(pipeline, [images] + chunked, extra)
+
+        def pipeline_rot(imgs, rots, value):
+            latents, _ = self._encode(imgs)
+            return self._generate(self._splice(latents, param_name, value), rots)
+
+        return self._chunked(pipeline_rot, [images, np.asarray(rotations, np.float32)] + chunked,
+                             extra)
+
+    def sample(self, n: int, rotations: Optional[np.ndarray] = None,
+               truncation: float = 1.0) -> np.ndarray:
+        """Photo-free sampling through the LatentGAN prior."""
+        if self.latent_gan is None:
+            raise ValueError("ConfigNetServer was built without a LatentGAN")
+        latents = self.latent_gan.generate_latents(n, truncation=truncation)
+        if rotations is None:
+            rotations = np.zeros((n, 3), np.float32)
+        return self.generate(latents, rotations)

@@ -4,7 +4,10 @@ setup(
     name="confignet-tpu",
     version="0.1.0",
     description="TPU-native framework for controllable neural face image generation (CONFIG)",
-    packages=find_packages(include=["confignet_tpu", "confignet_tpu.*"]),
+    packages=find_packages(include=["confignet_tpu", "confignet_tpu.*",
+                                    "confignet_tpu_torch", "confignet_tpu_torch.*"]),
+    # the PyTorch port's CUDA kernels are compiled from these at first use
+    package_data={"confignet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
