@@ -20,8 +20,23 @@
 5. Runs the same float32 server with the kernels and with their plain
    versions on 8 photos; the renders must agree to a mean abs uint8
    difference below 1.0.
-6. Prints the kernels' JSON record, then as the last line
-   {"ok": true, "device": {...}}.
+6. Holds the rotation's transpose kernel (the backward of the resample) against
+   its plain version at the train step's shapes (B=12, 24; float32 atol 2e-4,
+   bf16 3e-2 relative), twice, and times it beside the input gradient of
+   F.grid_sample; times the AdaIN backward (torch ops) at the six 256px sites.
+7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
+   layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
+   fake dataset of 64 images: float32, one warm-up and 3 timed steps, each with
+   exactly 4 rotation-forward, 2 transpose and 24 AdaIN launches, finite losses,
+   a nonzero gradient for every generator-player parameter and a moving EMA;
+   then bfloat16, the same.  Then one float32 step of a kernel-path model and
+   of a plain-path model (gather rotation, plain AdaIN) on the same weights,
+   batch and draws: losses within rtol 1e-3, each player's gradient within a
+   relative L2 distance of 1e-3, or, where the step's own sensitivity to
+   rounding exceeds that, within 4x the distance of a one-site rounding probe
+   (see compare_train_paths).
+8. Prints the kernels' JSON record (launches and times on the float32 train
+   step's path), then as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero without a CUDA device, and outside a checkout (the
@@ -40,25 +55,58 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix
+from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
+from confignet_tpu_torch.models import generator as generator_module
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
 from confignet_tpu_torch.ops import cuda_build
-from confignet_tpu_torch.ops.adain_cuda import fused_adain, fused_adain_plain
-from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_kernel, rotate_3d_grid_plain
+from confignet_tpu_torch.ops.adain_cuda import fused_adain_backward, fused_adain_forward, fused_adain_plain
+from confignet_tpu_torch.ops.rotate_cuda import (
+    rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
+    rotate_3d_grid_transpose_plain)
 from confignet_tpu_torch.serving import ConfigNetServer
+from confignet_tpu_torch.training.first_stage import PLAYER_TREES, ConfigNetFirstStage
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ROTATE_FLOPS_PER_ELEMENT = 21  # 7 lerps of 3 operations
+TRANSPOSE_FLOPS_PER_ELEMENT = 25  # 3 (1 - d), 14 weight products, 8 accumulating adds
 ADAIN_FLOPS_PER_ELEMENT = 7  # mean 1, centred variance 3, normalise+modulate 3
 ADAIN_SITES_256 = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
 ADAIN_SITE_512 = (65536, 16)
 SERVE_CHUNK = 32
+TRAIN_BATCH = 24  # the D updates' generator batch; the G step renders two halves of 12
+TRAIN_STEPS = 3
+# bench_train.py's reference-scale stage-1 config (the reference's defaults at
+# 256px, 5 discriminator layers, the 145-dim latent layout), copied here
+TRAIN_CONFIG = {
+    "output_shape": (256, 256, 3),
+    "n_discr_layers": 5,
+    "batch_size": TRAIN_BATCH,
+    "facemodel_inputs": {
+        "texture_embedding": (60, 30),
+        "geometry_identity_params": (60, 30),
+        "blendshape_values": (51, 30),
+        "beard_style_embedding": (7, 7),
+        "eyebrow_style_embedding": (7, 7),
+        "lower_eyelash_style": (2, 2),
+        "upper_eyelash_style": (2, 2),
+        "head_hair_style_embedding": (9, 9),
+        "eye_color": (3, 3),
+        "head_hair_color": (3, 3),
+        "hdri_embedding": (20, 20),
+        "bone_rotations:left_eye": (2, 2),
+    },
+    "metrics_checkpoint_period": 10 ** 9,
+    "image_checkpoint_period": 10 ** 9,
+    "seed": 0,
+}
 # float32: absolute (the JAX kernels' contracts, tests/test_pallas_interpret.py);
 # bfloat16: 3e-2 of max(1, |value|) -- kernel and plain version each round
 # once to bf16, and one bf16 ulp is 2^-7 relative (0.03125 in [4, 8)).
-TOL = {"float32": {"rotate": 2e-5, "adain": 1e-4}, "bfloat16": {"rotate": 3e-2, "adain": 3e-2}}
+# The transpose's float32 bound is the JAX transpose kernel's contract (2e-4).
+TOL = {"float32": {"rotate": 2e-5, "adain": 1e-4, "transpose": 2e-4},
+       "bfloat16": {"rotate": 3e-2, "adain": 3e-2, "transpose": 3e-2}}
 
 
 def compare(got, want):
@@ -113,7 +161,7 @@ def rotate_phase(batch: int, dtype, records: list):
     grid = torch.randn((batch, size, size, size, channels), generator=gen, device="cuda").to(dtype)
     transform = euler_angles_to_matrix(
         torch.from_numpy(poses(batch, np.random.default_rng(batch)))).cuda()
-    got = rotate_3d_grid_kernel(grid, transform)
+    got = rotate_3d_grid_forward(grid, transform)
     want = rotate_3d_grid_plain(grid, transform)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
@@ -136,7 +184,7 @@ def rotate_phase(batch: int, dtype, records: list):
     rec = dict(kernel="rotate_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
                shape=list(grid.shape), max_abs_err=err, checked_err=checked,
                library_max_abs_err=lib_err,
-               ms=time_ms(lambda: rotate_3d_grid_kernel(grid, transform)),
+               ms=time_ms(lambda: rotate_3d_grid_forward(grid, transform)),
                plain_ms=time_ms(lambda: rotate_3d_grid_plain(grid, transform)),
                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
@@ -150,7 +198,7 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
     scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
     bias = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
-    got = fused_adain(x, scale, bias)
+    got = fused_adain_forward(x, scale, bias)
     want = fused_adain_plain(x, scale, bias)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
@@ -166,13 +214,263 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     bound_ms, bound_by = bound(n_bytes, ADAIN_FLOPS_PER_ELEMENT * x.numel())
     rec = dict(kernel="adain_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
                shape=list(x.shape), max_abs_err=err, checked_err=checked,
-               ms=time_ms(lambda: fused_adain(x, scale, bias)),
+               ms=time_ms(lambda: fused_adain_forward(x, scale, bias)),
                plain_ms=time_ms(lambda: fused_adain_plain(x, scale, bias)),
                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
     if not checked <= TOL[rec["dtype"]]["adain"]:
         raise AssertionError(f"AdaIN kernel disagrees with its plain version: {rec}")
+
+
+def transpose_phase(batch: int, dtype, records: list):
+    """The transpose kernel (gradient of the resample w.r.t. the grid) against
+    its plain version, launched twice (float atomics: the two agree only
+    within the tolerance)."""
+    size, channels = 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(1000 + batch)
+    ct = torch.randn((batch, size, size, size, channels), generator=gen, device="cuda").to(dtype)
+    transform = euler_angles_to_matrix(
+        torch.from_numpy(poses(batch, np.random.default_rng(batch)))).cuda()
+    got = rotate_3d_grid_transpose(ct, transform)
+    again = rotate_3d_grid_transpose(ct, transform)
+    want = rotate_3d_grid_transpose_plain(ct, transform)
+    torch.cuda.synchronize()
+    err, checked = compare(got, want)
+    _, repeat = compare(again, got)
+
+    # library yardstick: the input gradient of the forward phase's 5-D
+    # grid_sample, only the volume requiring grad (backward timed alone)
+    floor, _, frac = _source_coords(ct, transform)
+    src = (floor.float() + frac) / (size - 1) * 2 - 1
+    sample_grid = src.flip(1).transpose(1, 2).reshape(batch, size, size, size, 3).to(dtype)
+    volume = torch.zeros_like(ct).permute(0, 4, 1, 2, 3).requires_grad_(True)
+    out = F.grid_sample(volume, sample_grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    ct_cf = ct.permute(0, 4, 1, 2, 3)
+
+    def library():
+        return torch.autograd.grad(out, volume, ct_cf, retain_graph=True)[0]
+
+    lib_err = (library().permute(0, 2, 3, 4, 1).float() - want.float()).abs().max().item()
+    elem = ct.element_size()
+    n_bytes = 2 * ct.numel() * elem + transform.numel() * 4
+    bound_ms, bound_by = bound(n_bytes, TRANSPOSE_FLOPS_PER_ELEMENT * ct.numel())
+    scratch = 2 * ct.numel() * 4 if dtype == torch.bfloat16 else 0  # f32 scratch written, read
+    rec = dict(kernel="rotate_transpose_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
+               shape=list(ct.shape), max_abs_err=err, checked_err=checked, repeat_err=repeat,
+               library_max_abs_err=lib_err,
+               ms=time_ms(lambda: rotate_3d_grid_transpose(ct, transform)),
+               plain_ms=time_ms(lambda: rotate_3d_grid_transpose_plain(ct, transform)),
+               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+               bound_with_scratch_ms=bound(n_bytes + scratch, 0)[0])
+    records.append(rec)
+    print("phase " + json.dumps(rec), flush=True)
+    tol = TOL[rec["dtype"]]["transpose"]
+    if not (checked <= tol and repeat <= tol):
+        raise AssertionError(f"transpose kernel disagrees with its plain version: {rec}")
+
+
+def adain_backward_phase(batch: int, positions: int, channels: int, dtype, records: list):
+    """Times the AdaIN backward (torch ops, the JAX package's XLA math) beside
+    the autograd backward of F.group_norm + affine; not a kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(positions * channels + batch + 7)
+    x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    g = torch.randn((batch, positions, channels), generator=gen, device="cuda").to(dtype)
+    scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
+    bias = torch.zeros((batch, channels), device="cuda", dtype=dtype)
+
+    x_cf = x.transpose(1, 2).contiguous().requires_grad_(True)
+    gain = (scale.detach().clone() + 1).requires_grad_(True)
+    shift = bias.detach().clone().requires_grad_(True)
+    out = F.group_norm(x_cf, channels, eps=1e-3) * gain[:, :, None] + shift[:, :, None]
+    g_cf = g.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (x_cf, gain, shift), g_cf, retain_graph=True)
+
+    elem = x.element_size()
+    n_bytes = 3 * x.numel() * elem + 3 * scale.numel() * elem  # x, g read; dx written
+    rec = dict(kernel="adain_backward_torch", batch=batch, dtype=str(dtype).replace("torch.", ""),
+               shape=list(x.shape),
+               ms=time_ms(lambda: fused_adain_backward(x, scale, g, 1e-3, bias.dtype)),
+               library_ms=time_ms(library), bound_ms=bound(n_bytes, 0)[0], bound_by="bytes")
+    records.append(rec)
+    print("phase " + json.dumps(rec), flush=True)
+
+
+class FakeDataset:
+    """A training set in the shape the trainer reads: uint8 images, eye masks,
+    face-model metadata and rotations within the configured ranges."""
+
+    def __init__(self, n_images: int, img_size: int, facemodel_dims: dict, seed: int):
+        rng = np.random.default_rng(seed)
+        self.imgs = rng.integers(0, 256, (n_images, img_size, img_size, 3), dtype=np.uint8)
+        self.eye_masks = (rng.random((n_images, img_size, img_size)) > 0.95).astype(np.uint8)
+        self.metadata_inputs = {name: rng.normal(size=(n_images, dim)).astype(np.float32)
+                                for name, dim in facemodel_dims.items()}
+        ranges = np.radians(np.asarray(((-30, 30), (-10, 10), (0, 0)), np.float64))
+        self.metadata_inputs["rotations"] = rng.uniform(
+            ranges[:, 0], ranges[:, 1], size=(n_images, 3)).astype(np.float32)
+
+
+def train_config(compute_dtype: str, **extra):
+    return dict(TRAIN_CONFIG, compute_dtype=compute_dtype, **extra)
+
+
+def train_launches():
+    return (rotate_3d_grid_forward.launches, rotate_3d_grid_transpose.launches,
+            fused_adain_forward.launches)
+
+
+TRAIN_STEP_LAUNCHES = (4, 2, 24)  # rotation forward, transpose, AdaIN per 256px train step
+
+
+def check_finite(losses, label):
+    for group, values in losses.items():
+        for key, value in values.items():
+            if not torch.isfinite(value).item():
+                raise AssertionError(f"{label}: {group}/{key} = {value.item()}")
+
+
+def train_run(model, dataset, label: str, card: str, kind: str):
+    """One warm-up step, then TRAIN_STEPS timed steps (host batches drawn
+    beforehand), each with exactly TRAIN_STEP_LAUNCHES kernel launches.  The
+    launch counters are zeroed after the warm-up; returns (the counters after
+    the timed steps, the run's record)."""
+    step = model._build_train_step()
+    batches = [model._sample_host_batch(dataset, dataset) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check_finite(step(batches[0]), label)
+    warmup_s = time.perf_counter() - t0
+
+    rotate_3d_grid_forward.launches = 0
+    rotate_3d_grid_transpose.launches = 0
+    fused_adain_forward.launches = 0
+    all_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        before = train_launches()
+        all_losses.append(step(batch))
+        delta = tuple(after - b for after, b in zip(train_launches(), before))
+        if delta != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"{label}: launches (rotate, transpose, adain) {delta} in one "
+                                 f"step, expected {TRAIN_STEP_LAUNCHES}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = train_launches()
+    for losses in all_losses:
+        check_finite(losses, label)
+    rec = dict(run=label, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=seconds,
+               steps_per_s=TRAIN_STEPS / seconds, img_per_s=TRAIN_STEPS * TRAIN_BATCH / seconds,
+               warmup_s=warmup_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=dict(zip(("rotate", "transpose", "adain"), launches)),
+               last_losses={g: {k: float(v) for k, v in d.items()} for g, d in all_losses[-1].items()})
+    print(f"train {label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} in {seconds * 1e3:.1f} ms = "
+          f"{rec['steps_per_s']:.3f} steps/s, {rec['img_per_s']:.1f} img/s on {kind} ({card}); "
+          f"warm-up {warmup_s:.1f} s; peak {rec['peak_memory_gb']:.1f} GB; launches {launches}; "
+          f"loss_sum g {rec['last_losses']['g']['loss_sum']:.4f} d "
+          f"{rec['last_losses']['d']['loss_sum']:.4f}", flush=True)
+    return launches, rec
+
+
+def check_generator_gradients_and_ema(model, ema_before) -> dict:
+    """Every generator-player parameter got a nonzero gradient in the last G
+    step (with beta_1 = 0 the Adam first moment is that gradient) and every
+    EMA leaf moved."""
+    zero = [f"{tree}/{key}" for tree, leaves in model.first_moments()["generator"].items()
+            for key, value in leaves.items() if not np.any(value)]
+    if zero:
+        raise AssertionError(f"generator-player parameters without gradient: {zero[:10]}")
+    still = [k for k, v in model.generator_smoothed.state_dict().items()
+             if torch.equal(v, ema_before[k])]
+    if still:
+        raise AssertionError(f"generator_smoothed leaves that did not move: {still[:10]}")
+    n = sum(len(leaves) for leaves in model.first_moments()["generator"].values())
+    print(f"train float32: all {n} generator-player parameters got a nonzero gradient; all "
+          f"{len(ema_before)} generator_smoothed leaves moved", flush=True)
+    return dict(generator_player_leaves=n, ema_leaves=len(ema_before))
+
+
+def _rotate_via_float64(grid, transform):
+    """The gather form computed in float64 and rounded once: the plain path
+    with one site rounded differently (about one ulp)."""
+    return rotate_3d_grid(grid.double(), transform.double()).to(grid.dtype)
+
+
+def compare_train_paths(model_k, dataset) -> dict:
+    """One float32 step of the kernel-path model and of a plain-path model
+    (gather rotation, plain AdaIN) from the same weights, fresh optimizers,
+    the same host batch and the same draws.
+
+    At random weights the step's gradients amplify last-bit differences in
+    the forward a long way (a deterministic rerun of one path agrees
+    exactly, but changing only the rounding of one site moves the generator
+    player's gradient by ~1e-2 relative L2; NVIDIA H100, this script).  So
+    the bounds (1e-3 on every loss's relative error and every player's
+    relative L2 gradient distance) are widened, per quantity, to 4x the
+    distance of a probe: the plain path with only the resample rounded
+    differently (``_rotate_via_float64``).  The kernel path changes the
+    rounding at 7 sites forward and backward, the probe at one."""
+    weights = model_k.get_weights()
+    model_k.set_weights(weights)
+    generator_module._ROTATION_IMPLS["gather_via_float64"] = _rotate_via_float64
+    batch = model_k._sample_host_batch(dataset, dataset)
+    rng = np.random.default_rng(7)
+    latent_dim, half = model_k.config["latent_dim"], TRAIN_BATCH // 2
+    latents = [rng.normal(size=(n, latent_dim)).astype(np.float32)
+               for n in (TRAIN_BATCH, TRAIN_BATCH, TRAIN_BATCH - half)]
+    rotations = [poses(n, rng) for n in (TRAIN_BATCH, TRAIN_BATCH - half)]
+    flips = [rng.random(TRAIN_BATCH) < 0.5 for _ in range(2)]
+
+    def step(model):
+        queues = [list(latents), list(rotations), list(flips)]
+        model._sample_latent = lambda n: torch.from_numpy(queues[0].pop(0)).cuda()
+        model._sample_rotations = lambda n: torch.from_numpy(queues[1].pop(0)).cuda()
+        model._flip_mask = lambda n: torch.from_numpy(queues[2].pop(0)).cuda()
+        losses = model._build_train_step()(batch)
+        return ({f"{g}/{k}": float(v) for g, d in losses.items() for k, v in d.items()},
+                model.first_moments())
+
+    results = {}
+    for name, rotation in (("plain", "gather"), ("probe", "gather_via_float64")):
+        model = ConfigNetFirstStage(train_config("float32", rotation_resample_train=rotation,
+                                                 adain_impl="plain"))
+        model.set_weights(weights)
+        before = train_launches()
+        results[name] = step(model)
+        if train_launches() != before:
+            raise AssertionError(f"the {name}-path train step launched a kernel")
+        del model
+        torch.cuda.empty_cache()
+    before = train_launches()
+    results["kernel"] = step(model_k)
+    delta = tuple(a - b for a, b in zip(train_launches(), before))
+    if delta != TRAIN_STEP_LAUNCHES:
+        raise AssertionError(f"the kernel-path train step launched {delta}")
+
+    def distances(name):
+        losses, moments = results[name]
+        plain_losses, plain_moments = results["plain"]
+        out = {"losses": max(abs(losses[k] - v) / abs(v) for k, v in plain_losses.items())}
+        for player, trees in PLAYER_TREES.items():
+            keys = [(t, k) for t in trees for k in sorted(plain_moments[player][t])]
+            a = np.concatenate([moments[player][t][k].ravel() for t, k in keys])
+            b = np.concatenate([plain_moments[player][t][k].ravel() for t, k in keys])
+            out[player] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        return out
+
+    kernel, probe = distances("kernel"), distances("probe")
+    bounds = {k: max(1e-3, 4 * v) for k, v in probe.items()}
+    print(f"train float32 kernel vs plain path (losses: max relative error; players: relative L2 "
+          f"of the gradient): {json.dumps(kernel)}; one-site rounding probe vs plain path: "
+          f"{json.dumps(probe)}; bounds {json.dumps(bounds)}", flush=True)
+    failed = [k for k in kernel if not kernel[k] <= bounds[k]]
+    if failed:
+        raise AssertionError(f"kernel-path and plain-path train steps disagree on {failed}")
+    return dict(kernel_vs_plain=kernel, probe_vs_plain=probe, bounds=bounds)
 
 
 def serving_config(compute_dtype: str, **extra):
@@ -201,23 +499,33 @@ def give_encoder_heads_weights(model, photos):
             head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * std)
 
 
-def profile_generate(server, latents, rotations, path: str) -> None:
-    """Device time of one generate chunk, by kernel name (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(label: str, fn, path: str) -> None:
+    """Device time of one warm call of ``fn``, by kernel name
+    (torch.profiler), beside its host wall time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    server.generate(latents, rotations)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
         t0 = time.perf_counter()
-        server.generate(latents, rotations)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    by_shape = prof.key_averages(group_by_input_shape=True).table(
+        sort_by="cuda_time_total", row_limit=25, max_name_column_width=40,
+        max_shapes_column_width=160)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms\n{table}\n")
+    Path(path).write_text(f"{label}: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms\n"
+                          f"{table}\n\nby input shape:\n{by_shape}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    print(f"profile generate chunk {len(latents)}: wall {wall_ms:.3f} ms, device busy "
-          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%)", flush=True)
+    print(f"profile {label}: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
+          f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops",
+          flush=True)
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
 
@@ -226,7 +534,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every record to this JSON file")
     parser.add_argument("--profile", help="also profile one warm generate chunk of the bf16 "
-                        "server with torch.profiler and write its kernel table here")
+                        "server with torch.profiler and write its kernel table here (and one "
+                        "float32 train step's beside it, as <stem>_train.txt)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -259,6 +568,11 @@ def main() -> int:
                 adain_phase(batch, positions, channels, dtype, records)
     for dtype in (torch.float32, torch.bfloat16):
         adain_phase(256, *ADAIN_SITE_512, dtype, records)
+    # the float32 train step's shapes: the D updates render 24, the G step 12 + 12
+    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
+        rotate_phase(batch, torch.float32, records)
+        for positions, channels in ADAIN_SITES_256:
+            adain_phase(batch, positions, channels, torch.float32, records)
     torch.cuda.empty_cache()
 
     # -- 4. serving at full width ----------------------------------------------
@@ -283,16 +597,16 @@ def main() -> int:
             photos, "blendshape_values", blend)),
         ("generate", 256, 8, lambda: server.generate(latents, rotations)),
     ]
-    rotate_3d_grid_kernel.launches = 0
-    fused_adain.launches = 0
+    rotate_3d_grid_forward.launches = 0
+    fused_adain_forward.launches = 0
     results, served = {}, []
     for name, n_images, gen_chunks, call in requests:
         for attempt in ("cold", "warm"):
-            rot0, ada0 = rotate_3d_grid_kernel.launches, fused_adain.launches
+            rot0, ada0 = rotate_3d_grid_forward.launches, fused_adain_forward.launches
             t0 = time.perf_counter()
             out = call()
             seconds = time.perf_counter() - t0
-            d_rot, d_ada = rotate_3d_grid_kernel.launches - rot0, fused_adain.launches - ada0
+            d_rot, d_ada = rotate_3d_grid_forward.launches - rot0, fused_adain_forward.launches - ada0
             if (d_rot, d_ada) != (gen_chunks, 6 * gen_chunks):
                 raise AssertionError(f"{name}: {d_rot} rotation and {d_ada} AdaIN launches for "
                                      f"{gen_chunks} generator chunks")
@@ -303,10 +617,11 @@ def main() -> int:
                   f"{n_images / seconds:.1f} img/s on {kind} ({card}); launches rotate {d_rot}, "
                   f"adain {d_ada}", flush=True)
         results[name] = out
-    main_launches = {"rotate_cuda": rotate_3d_grid_kernel.launches,
-                     "adain_cuda": fused_adain.launches}
+    main_launches = {"rotate_cuda": rotate_3d_grid_forward.launches,
+                     "adain_cuda": fused_adain_forward.launches}
     if args.profile:
-        profile_generate(server, latents[:SERVE_CHUNK], rotations[:SERVE_CHUNK], args.profile)
+        chunk = (latents[:SERVE_CHUNK], rotations[:SERVE_CHUNK])
+        profile(f"generate chunk {SERVE_CHUNK}", lambda: server.generate(*chunk), args.profile)
 
     lat, rot = results["encode"]
     if lat.shape != (40, 145) or rot.shape != (40, 3) or not (np.isfinite(lat).all()
@@ -328,12 +643,12 @@ def main() -> int:
     give_encoder_heads_weights(model_k, photos[:8])
     model_p = ConfigNet(serving_config("float32", rotation_resample="gather", adain_impl="plain"))
     model_p.set_weights(model_k.get_weights())
-    before = (rotate_3d_grid_kernel.launches, fused_adain.launches)
+    before = (rotate_3d_grid_forward.launches, fused_adain_forward.launches)
     out_p = ConfigNetServer(model_p, chunk=8).render_with_attribute(photos[:8], "blendshape_values", blend)
-    if (rotate_3d_grid_kernel.launches, fused_adain.launches) != before:
+    if (rotate_3d_grid_forward.launches, fused_adain_forward.launches) != before:
         raise AssertionError("the plain-path server launched a kernel")
     out_k = ConfigNetServer(model_k, chunk=8).render_with_attribute(photos[:8], "blendshape_values", blend)
-    if (rotate_3d_grid_kernel.launches - before[0], fused_adain.launches - before[1]) != (1, 6):
+    if (rotate_3d_grid_forward.launches - before[0], fused_adain_forward.launches - before[1]) != (1, 6):
         raise AssertionError("the kernel-path server did not go through the kernels")
     e2e = float(np.mean(np.abs(out_k.astype(int) - out_p.astype(int))))
     print(f"e2e float32 kernel vs plain path: mean abs uint8 difference {e2e:.4f} "
@@ -341,37 +656,80 @@ def main() -> int:
     if not e2e < 1.0 or out_k.std() == 0:
         raise AssertionError(f"kernel path and plain path disagree: {e2e}")
 
-    # -- 6. records ------------------------------------------------------------------
-    def main_path_entry(kernel, source, replaces, phase_records):
-        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": main_launches[kernel],
-                "max_abs_err": max(r["max_abs_err"] for r in phase_records),
-                "ms": sum(r["ms"] for r in phase_records),
-                "plain_ms": sum(r["plain_ms"] for r in phase_records),
-                "bound_ms": sum(r["bound_ms"] for r in phase_records),
-                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in phase_records)
-                else "operations",
-                "library_ms": sum(r["library_ms"] for r in phase_records)}
+    del model_k, model_p
+    torch.cuda.empty_cache()
 
-    # the serving path's shapes: one bf16 generator chunk of 32 (the AdaIN
-    # entry sums its six 256px sites)
-    at_main = [r for r in records if r["batch"] == SERVE_CHUNK and r["dtype"] == "bfloat16"]
+    # -- 6. transpose kernel; AdaIN backward ---------------------------------------
+    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
+        for dtype in (torch.float32, torch.bfloat16):
+            transpose_phase(batch, dtype, records)
+    for positions, channels in ADAIN_SITES_256:
+        adain_backward_phase(TRAIN_BATCH // 2, positions, channels, torch.bfloat16, records)
+    torch.cuda.empty_cache()
+
+    # -- 7. stage-1 training at full width ---------------------------------------------
+    dataset = FakeDataset(64, 256, {name: dims[0] for name, dims
+                                    in TRAIN_CONFIG["facemodel_inputs"].items()}, seed=0)
+    t0 = time.perf_counter()
+    trainer = ConfigNetFirstStage(train_config("float32"))
+    print(f"trainer: latent_dim {trainer.config['latent_dim']}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if trainer.config["latent_dim"] != 145:
+        raise AssertionError(trainer.config["latent_dim"])
+    ema_before = {k: v.clone() for k, v in trainer.generator_smoothed.state_dict().items()}
+    train_main_launches, train_f32 = train_run(trainer, dataset, "float32", card, kind)
+    train_f32.update(check_generator_gradients_and_ema(trainer, ema_before))
+    if args.profile:
+        step = trainer._build_train_step()
+        batch = trainer._sample_host_batch(dataset, dataset)
+        profile("train step (float32, batch 24)", lambda: step(batch),
+                str(Path(args.profile).with_name(Path(args.profile).stem + "_train.txt")))
+    train_paths = compare_train_paths(trainer, dataset)
+    del trainer
+    torch.cuda.empty_cache()
+    _, train_bf16 = train_run(ConfigNetFirstStage(train_config("bfloat16")), dataset, "bfloat16",
+                              card, kind)
+
+    # -- 8. records ------------------------------------------------------------------
+    def entry(kernel, source, replaces, launches, phase_counts):
+        """Times of one float32 train step's launches: the phases at its
+        shapes, each counted as often as the step launches it."""
+        picked = [(r, n) for r in records for (name, batch), n in phase_counts.items()
+                  if r["kernel"] == name and r["batch"] == batch and r["dtype"] == "float32"]
+        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
+                "ms": sum(r["ms"] * n for r, n in picked),
+                "plain_ms": sum(r["plain_ms"] * n for r, n in picked),
+                "bound_ms": sum(r["bound_ms"] * n for r, n in picked),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in picked)
+                else "operations",
+                "library_ms": sum(r["library_ms"] * n for r, n in picked),
+                "serving_launches": serving_launches.get(kernel)}
+
+    serving_launches = main_launches
+    half = TRAIN_BATCH // 2
+    n_rot, n_transpose, n_adain = train_main_launches
     kernels = [
-        main_path_entry("rotate_cuda", "confignet_tpu_torch/csrc/rotate.cu",
-                        "confignet_tpu/ops/rotate_pallas.py:65",
-                        [r for r in at_main if r["kernel"] == "rotate_cuda"]),
-        main_path_entry("adain_cuda", "confignet_tpu_torch/csrc/adain.cu",
-                        "confignet_tpu/ops/adain_pallas.py:29",
-                        [r for r in at_main if r["kernel"] == "adain_cuda"]),
+        entry("rotate_cuda", "confignet_tpu_torch/csrc/rotate.cu",
+              "confignet_tpu/ops/rotate_pallas.py:65", n_rot,
+              {("rotate_cuda", TRAIN_BATCH): 2, ("rotate_cuda", half): 2}),
+        entry("rotate_transpose_cuda", "confignet_tpu_torch/csrc/rotate.cu",
+              "confignet_tpu/ops/rotate_pallas.py:95", n_transpose,
+              {("rotate_transpose_cuda", half): 2}),
+        entry("adain_cuda", "confignet_tpu_torch/csrc/adain.cu",
+              "confignet_tpu/ops/adain_pallas.py:29", n_adain,
+              {("adain_cuda", TRAIN_BATCH): 2, ("adain_cuda", half): 2}),
     ]
-    for entry in kernels:
-        if entry["launches"] < 1:
-            raise AssertionError(f"{entry['name']} was not launched on the main path")
+    for item in kernels:
+        if item["launches"] < 1:
+            raise AssertionError(f"{item['name']} was not launched on the main path")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kind": kind, "torch": torch.__version__, "cuda": torch.version.cuda,
              "phases": records, "serving": served, "e2e_mean_abs_uint8": e2e,
+             "train": [train_f32, train_bf16], "train_paths": train_paths,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -12,7 +12,7 @@ into ``weight``; only the layout of kernels changes:
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
@@ -87,13 +87,20 @@ def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
             param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
-def export_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`load_jax_params`: the model's parameters as float32
-    numpy arrays in JAX layout under their pytree-path keys."""
+def export_jax_tensors(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """(torch parameter name, tensor of that parameter's shape) pairs -> float32
+    numpy arrays in JAX layout under the parameters' pytree-path keys (the
+    parameters themselves, or per-parameter optimizer state)."""
     flat = {}
-    for name, param in model.named_parameters():
-        value = param.detach().to("cpu", torch.float32).numpy()
+    for name, tensor in named:
+        value = tensor.detach().to("cpu", torch.float32).numpy()
         if name.endswith("weight"):
             value = np.ascontiguousarray(value.transpose(_TO_JAX[value.ndim]))
         flat[_jax_key(name)] = value
     return flat
+
+
+def export_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`load_jax_params`: the model's parameters as float32
+    numpy arrays in JAX layout under their pytree-path keys."""
+    return export_jax_tensors(model.named_parameters())

@@ -11,7 +11,8 @@ Parity notes vs the reference (confignet/dnn_models/building_blocks.py):
   compute dtype, as flax ``promote_dtype`` does.
 
 Module attributes carry the flax module names (``dense_0``, ``conv_0``,
-``adain``, ``mlp``), so JAX checkpoints map onto them by path.
+``adain``, ``mlp``, ``conv``, ``in_gamma``), so JAX checkpoints map onto them
+by path.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from torch import nn
 
 from confignet_tpu_torch.core.initializers import init_kernel_
 from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last, promote
-from confignet_tpu_torch.ops.norms import adain_modulate
+from confignet_tpu_torch.ops.norms import adain_modulate, layer_style, std_instance_norm
 from confignet_tpu_torch.ops.upconv import UpConv
 
 
@@ -155,3 +156,34 @@ class ConvAdaIN(nn.Module):
             x = self.conv_1(leaky_relu(x, self.conv_negative_slope))
         x = leaky_relu(x, self.conv_negative_slope)
         return self.adain(x, z)
+
+
+class DiscrBlock(nn.Module):
+    """Stride-2 SAME conv block (TF padding: 0 before, 1 after for an even
+    size and a 3x3 kernel), optionally returning style statistics
+    (reference: building_blocks.py:83-111).  The styles are taken from the
+    conv output BEFORE the LeakyReLU; the block output goes through
+    LeakyReLU(0.3) and then ``std_instance_norm`` with the per-channel
+    ``in_gamma`` (ones) and ``in_beta`` (zeros)."""
+
+    def __init__(self, in_features: int, num_feature_maps: int, kernel_size: int,
+                 return_styles: bool = True, conv_negative_slope: float = 0.3,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.return_styles = return_styles
+        self.conv_negative_slope = conv_negative_slope
+        self.conv = Conv2d(in_features, num_feature_maps, (kernel_size, kernel_size), stride=2,
+                           dtype=dtype)
+        self.in_gamma = nn.Parameter(torch.ones(num_feature_maps))
+        self.in_beta = nn.Parameter(torch.zeros(num_feature_maps))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.ones_(self.in_gamma)
+        nn.init.zeros_(self.in_beta)
+
+    def forward(self, x: torch.Tensor):
+        x = self.conv(x)
+        styles = layer_style(x) if self.return_styles else None
+        x = leaky_relu(x, self.conv_negative_slope)
+        x = std_instance_norm(x, self.in_gamma, self.in_beta, spatial_axes=(1, 2))
+        return (x, styles) if self.return_styles else x

@@ -6,7 +6,7 @@ confignet/dnn_models/hologan_generator.py).
    ones.
 2. Two upsample + Conv3D + AdaIN blocks -> a (16, 16, 16, nf/2) volume.
 3. The volume is rotated by per-sample Euler angles (trilinear resample:
-   the CUDA kernel or the gather form, ``rotation_resample``).
+   the CUDA kernels or the gather form, ``rotation_resample``).
 4. Two Conv3D(nf/4) + LeakyReLU(0.3), the depth collapse to
    (16, 16, 16 * nf/4), a 1x1 projection to 512 + LeakyReLU(0.2).
 5. The 2D ConvAdaIN chain to the output size, a final up-conv(3, 4x4), tanh.
@@ -25,7 +25,7 @@ from torch import nn
 from confignet_tpu_torch.core.transforms import euler_angles_to_matrix, rotate_3d_grid
 from confignet_tpu_torch.models.blocks import Conv2d, ConvAdaIN, leaky_relu
 from confignet_tpu_torch.ops.conv3d import Conv3d
-from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_kernel
+from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_kernel, rotate_3d_grid_kernel_train
 from confignet_tpu_torch.ops.upconv import UpConv
 
 LatentInput = Union[torch.Tensor, Sequence[torch.Tensor], Dict[str, torch.Tensor]]
@@ -33,17 +33,28 @@ LatentInput = Union[torch.Tensor, Sequence[torch.Tensor], Dict[str, torch.Tensor
 _Z_KEYS = ("z_3d_0", "z_3d_1", "z_2d_0", "z_2d_1", "z_2d_2")
 
 
+_ROTATION_IMPLS = {"kernel": rotate_3d_grid_kernel, "kernel_train": rotate_3d_grid_kernel_train,
+                   "gather": rotate_3d_grid}
+
+
 def resolve_rotation_impl(name: str, x: torch.Tensor):
-    """"kernel" (the CUDA kernel's wrapper), "gather" (the differentiable
-    gather form) or "auto": the kernel for CUDA tensors, gather on the CPU.
-    The training-only custom backward comes with the training slice."""
-    if name == "auto":
-        name = "kernel" if x.is_cuda else "gather"
-    if name == "kernel":
-        return rotate_3d_grid_kernel
-    if name == "gather":
-        return rotate_3d_grid
-    raise ValueError(f"unknown rotation_resample implementation {name!r} (auto|gather|kernel)")
+    """Pick the rotation resample (ops/rotate_cuda.py):
+
+    - "kernel": the CUDA kernels; differentiable in the grid, raises if the
+      transform requires grad;
+    - "kernel_train": the CUDA kernels, the transform's gradient defined
+      ZERO (train steps, whose rotations are data);
+    - "gather": the gather form, differentiable in both (paths that optimise
+      rotations);
+    - "auto": kernel for CUDA tensors, gather on the CPU (inference);
+    - "auto_train": kernel_train for CUDA tensors, gather on the CPU.
+    """
+    if name in ("auto", "auto_train"):
+        name = ("kernel" if name == "auto" else "kernel_train") if x.is_cuda else "gather"
+    if name not in _ROTATION_IMPLS:
+        raise ValueError(f"unknown rotation_resample implementation {name!r} "
+                         "(auto|auto_train|gather|kernel|kernel_train)")
+    return _ROTATION_IMPLS[name]
 
 
 def build_input_dict(latent_vector, rotation) -> Dict[str, torch.Tensor]:

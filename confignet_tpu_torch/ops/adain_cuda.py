@@ -1,12 +1,15 @@
 """Fused AdaIN (instance norm + latent modulation) as a hand-written CUDA
-kernel (counterpart of ``confignet_tpu/ops/adain_pallas.py``, forward only).
+kernel (counterpart of ``confignet_tpu/ops/adain_pallas.py``).
 
 The contract is the Pallas kernel's: statistics over ALL non-batch,
 non-channel axes in float32 (biased variance, eps inside the rsqrt), output
 ``xhat * (scale + 1) + bias`` in x's dtype, ``scale``/``bias`` (B, C) in
-any float dtype.  :func:`fused_adain` is the wrapper: CUDA tensors go
-through ``csrc/adain.cu`` (see the note there), CPU tensors through the
-plain version :func:`fused_adain_plain`.
+any float dtype.  :func:`fused_adain` carries autograd: its forward is
+:func:`fused_adain_forward`, the kernel's wrapper (CUDA tensors go through
+``csrc/adain.cu``, see the note there; CPU tensors through the plain version
+:func:`fused_adain_plain`), and its backward is :func:`fused_adain_backward`,
+the JAX package's ``_fused_adain_bwd`` as torch ops (XLA math there, not a
+Pallas kernel).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from confignet_tpu_torch.ops import cuda_build
 
@@ -63,11 +67,11 @@ def _param(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(1) == 1 else t.contiguous()
 
 
-def fused_adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float = 1e-3) -> torch.Tensor:
-    """AdaIN over all spatial axes of x (B, *spatial, C) with (B, C)
-    scale/bias.  CUDA tensors go through the kernel (or raise); CPU tensors
-    through :func:`fused_adain_plain`."""
+def fused_adain_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        eps: float = 1e-3) -> torch.Tensor:
+    """The kernel's wrapper (no autograd): AdaIN over all spatial axes of x
+    (B, *spatial, C) with (B, C) scale/bias.  CUDA tensors go through the
+    kernel (or raise); CPU tensors through :func:`fused_adain_plain`."""
     if x.device.type == "cpu":
         return fused_adain_plain(x, scale, bias, eps)
     if x.device.type != "cuda" or scale.device != x.device or bias.device != x.device:
@@ -100,11 +104,58 @@ def fused_adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             float(eps), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"adain_forward launch failed: cudaError {err}")
-    fused_adain.launches += 1
+    fused_adain_forward.launches += 1
     return out
 
 
-fused_adain.launches = 0
+fused_adain_forward.launches = 0
+
+
+def fused_adain_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float,
+                         bias_dtype: torch.dtype):
+    """(dx, dscale, dbias) of AdaIN for the output cotangent ``g``:
+    statistics recomputed in float32, dbias = sum g, dscale = sum g*xhat,
+    dx = rstd*(dxhat - mean(dxhat) - xhat*mean(dxhat*xhat)) with
+    dxhat = g*(scale+1); each cotangent in its own primal's dtype."""
+    shape = x.shape
+    x3 = x.reshape(shape[0], -1, shape[-1]).float()
+    g3 = g.reshape(shape[0], -1, shape[-1]).float()
+    mean = x3.mean(dim=1, keepdim=True)
+    var = (x3 - mean).square().mean(dim=1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x3 - mean) * rstd
+    dbias = g3.sum(dim=1)
+    dscale = (g3 * xhat).sum(dim=1)
+    dxhat = g3 * (scale.float() + 1.0)[:, None, :]
+    m_dxhat = dxhat.mean(dim=1, keepdim=True)
+    m_dxhat_xhat = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx3 = rstd * (dxhat - m_dxhat - xhat * m_dxhat_xhat)
+    return dx3.reshape(shape).to(x.dtype), dscale.to(scale.dtype), dbias.to(bias_dtype)
+
+
+class _FusedAdaIN(torch.autograd.Function):
+    """The kernel (or its plain version) in ``forward``,
+    :func:`fused_adain_backward` in ``backward``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        return fused_adain_forward(x, scale, bias, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = fused_adain_backward(x, scale, g, ctx.eps, ctx.bias_dtype)
+        return dx, dscale, dbias, None
+
+
+def fused_adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-3) -> torch.Tensor:
+    """AdaIN over all spatial axes of x (B, *spatial, C) with (B, C)
+    scale/bias, differentiable in all three (see the module docstring)."""
+    return _FusedAdaIN.apply(x, scale, bias, eps)
 
 
 def resolve_adain_impl(name: str, x: torch.Tensor) -> str:

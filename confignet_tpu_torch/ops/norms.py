@@ -1,11 +1,18 @@
-"""Normalisation primitives of the generator (counterpart of
-``confignet_tpu/ops/norms.py``).
+"""Normalisation primitives (counterpart of ``confignet_tpu/ops/norms.py``).
 
-``spatial_instance_norm`` is the Keras ``LayerNormalization`` over the
-spatial axes used inside AdaIN: ``(x - mean) * rsqrt(var + eps)``, eps 1e-3
-INSIDE the rsqrt, biased variance ``mean((x - mean)^2)`` (reference:
-confignet/dnn_models/building_blocks.py:132-133).  The discriminator's
-``std_instance_norm`` and ``layer_style`` come with the training slice.
+Two instance-norm flavours, NOT interchangeable:
+
+- ``spatial_instance_norm`` is the Keras ``LayerNormalization`` over the
+  spatial axes used inside AdaIN: ``(x - mean) * rsqrt(var + eps)``, eps
+  1e-3 INSIDE the rsqrt, biased variance ``mean((x - mean)^2)`` (reference:
+  confignet/dnn_models/building_blocks.py:132-133).
+- ``std_instance_norm`` is the discriminator blocks' keras-contrib
+  ``InstanceNormalization``: ``(x - mean) / (std + eps)``, eps 1e-3 OUTSIDE
+  the sqrt, then a per-channel affine (reference:
+  confignet/dnn_models/instance_normalization.py:117-119).
+
+``layer_style`` gives the style heads' statistics, ``concat(mean,
+sqrt(var + 1e-6))`` with eps inside the sqrt.
 """
 from __future__ import annotations
 
@@ -22,6 +29,27 @@ def spatial_instance_norm(x: torch.Tensor, spatial_axes: Sequence[int], eps: flo
     mean = x.mean(dim=axes, keepdim=True)
     var = (x - mean).square().mean(dim=axes, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps)
+
+
+def std_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      spatial_axes: Sequence[int], eps: float = 1e-3) -> torch.Tensor:
+    """(x - mean) / (std + eps) * gamma + beta over ``spatial_axes``;
+    ``gamma``/``beta`` are per-channel (last axis)."""
+    axes = tuple(spatial_axes)
+    mean = x.mean(dim=axes, keepdim=True)
+    std = torch.sqrt((x - mean).square().mean(dim=axes, keepdim=True))
+    return (x - mean) / (std + eps) * gamma + beta
+
+
+def layer_style(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-channel spatial mean and sqrt(var + eps) of a (B, H, W, C) or
+    (B, D, H, W, C) tensor, concatenated: (B, 2C)."""
+    if x.ndim not in (4, 5):
+        raise NotImplementedError(f"unsupported rank {x.ndim}")
+    axes = tuple(range(1, x.ndim - 1))
+    mean = x.mean(dim=axes)
+    std = torch.sqrt((x - x.mean(dim=axes, keepdim=True)).square().mean(dim=axes) + eps)
+    return torch.cat([mean, std], dim=-1)
 
 
 def adain_modulate(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -1,25 +1,47 @@
-"""ConfigNet first stage, inference half (counterpart of
-``confignet_tpu/training/first_stage.py``).
+"""ConfigNet first stage (counterpart of ``confignet_tpu/training/first_stage.py``).
 
-Holds the configuration schema, the face-model input bookkeeping, the
-generator (training weights and the ``generator_smoothed`` EMA weights used
-for inference) and the synthetic encoder, plus the latent-manipulation and
-image-generation API.  Training comes with a later slice, in this file.
+Holds the configuration schema, the face-model input bookkeeping, the seven
+parameter trees of the JAX checkpoint (``WEIGHT_TREES``), one Adam per
+player and the fused stage-1 training step (:meth:`_build_train_step`), plus
+the latent-manipulation and image-generation API.  The ``train()`` loop with
+its checkpoints, metrics, logging and prefetch thread comes with the
+infrastructure slice.
+
+The step copies the JAX step's order: (a) the image-D update on hflipped
+real images against ``G(z, rot)`` from the pre-step generator, computed
+without gradient; (b) the synthetic-D update likewise; (c) the latent-D
+update on ``z ~ prior`` against ``E_s(facemodel)``; (d) the generator
+player's update (generator, latent regressor and synthetic encoder under one
+Adam) against the already-updated discriminators; (e) the EMA of the
+generator.  Each player's gradient is taken with ``torch.autograd.grad`` over
+its own parameters only, so the G step's backward never reaches a D
+optimizer.  Random draws come from one ``torch.Generator`` on the model's
+device, seeded from ``config["seed"]``, through three methods a caller may
+override (:meth:`_sample_latent`, :meth:`_sample_rotations`,
+:meth:`_flip_mask`).
 """
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.device import resolve_device
-from confignet_tpu_torch.core import initializers
-from confignet_tpu_torch.core.model_io import export_jax_params, load_jax_params
+from confignet_tpu_torch.core.images import batched_hflip
+from confignet_tpu_torch.core.model_io import export_jax_params, export_jax_tensors, load_jax_params
+from confignet_tpu_torch.losses.gan import (
+    compute_discriminator_loss, compute_latent_discriminator_loss, eye_loss, gan_g_loss,
+    latent_regression_loss)
+from confignet_tpu_torch.losses.perceptual import PerceptualLoss
+from confignet_tpu_torch.models.blocks import MLP
+from confignet_tpu_torch.models.discriminator import HologanDiscriminator, HologanLatentRegressor
 from confignet_tpu_torch.models.generator import HologanGenerator
 from confignet_tpu_torch.models.synthetic_encoder import SyntheticDataEncoder
+from confignet_tpu_torch.training.state import ema_update, make_adam
 
 # The config schema: the same keys and semantics as the JAX package's
 # DEFAULT_CONFIG (and the reference's, confignet_first_stage.py:24-84), so
@@ -74,7 +96,8 @@ DEFAULT_CONFIG: Dict[str, Any] = {
     "n_generator_features": 256,
     "compute_dtype": "float32",  # "bfloat16" for throughput
     "perceptual_taps": None,
-    "rotation_resample": "auto",  # auto | gather | kernel (models/generator.py)
+    "rotation_resample": "auto",  # inference: auto | gather | kernel (models/generator.py)
+    "rotation_resample_train": "auto_train",  # train steps: auto_train | gather | kernel_train
     "adain_impl": "auto",  # auto | kernel | plain (ops/adain_cuda.py)
     "upconv_impl": "auto",  # naive | subpixel | auto (ops/upconv.py)
     "backbones_dir": None,
@@ -85,16 +108,35 @@ DEFAULT_CONFIG: Dict[str, Any] = {
     "seed": 0,
 }
 
+# each player's parameter trees, updated by one optimizer
+PLAYER_TREES: Dict[str, Tuple[str, ...]] = {
+    "generator": ("generator", "latent_regressor", "synthetic_encoder"),
+    "discriminator": ("discriminator",),
+    "synth_discriminator": ("synth_discriminator",),
+    "latent_discriminator": ("latent_discriminator",),
+}
+
+Batch = Dict[str, Any]
+
 
 def uint8_from_unit_range(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] images -> uint8: (x + 1) * 127.5, clipped, truncated."""
     return torch.clamp((x.float() + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
 
 
+def _stack(values: List[Any]) -> Any:
+    """Stack per-sub-update host arrays (or tuples of arrays) on a new
+    leading axis."""
+    if isinstance(values[0], (tuple, list)):
+        return tuple(np.stack(parts) for parts in zip(*values))
+    return np.stack(values)
+
+
 class ConfigNetFirstStage:
     MODEL_TYPE = "ConfigNetFirstStage"
-    # parameter trees this half holds, under their checkpoint names
-    WEIGHT_TREES = ("generator", "generator_smoothed", "synthetic_encoder")
+    # parameter trees, under their checkpoint names (first_stage.py:1239-1250)
+    WEIGHT_TREES = ("generator", "generator_smoothed", "latent_regressor", "synthetic_encoder",
+                    "discriminator", "synth_discriminator", "latent_discriminator")
 
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
                  initialize: bool = True):
@@ -110,11 +152,17 @@ class ConfigNetFirstStage:
         self.config["facemodel_inputs"] = dict(sorted(inputs.items()))
         self.config["latent_dim"] = int(sum(v[1] for v in self.config["facemodel_inputs"].values()))
 
+        # Host batch indices: a RandomState of its own, seeded from the global
+        # numpy stream (as the JAX trainer's), so other np.random use cannot
+        # shift the batch order.
+        self._batch_rng = np.random.RandomState(np.random.randint(0, 2**31))
         self._fine_tuned_generator_params = None
         self._build_modules()
         if initialize:
             self.initialize_network()
         self._to_device()
+        self._draws = torch.Generator(device=self.device).manual_seed(int(self.config.get("seed", 0)))
+        self._make_optimizers()
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -124,7 +172,11 @@ class ConfigNetFirstStage:
     def facemodel_inputs_tuple(self) -> Tuple:
         return tuple((name, tuple(dims)) for name, dims in self.config["facemodel_inputs"].items())
 
-    def _generator(self) -> HologanGenerator:
+    # ------------------------------------------------------------------
+    # Modules, parameters, optimizers
+    # ------------------------------------------------------------------
+
+    def _generator(self, rotation_resample: str) -> HologanGenerator:
         cfg = self.config
         return HologanGenerator(
             latent_dim=cfg["latent_dim"], output_shape=tuple(cfg["output_shape"][:2]),
@@ -133,44 +185,308 @@ class ConfigNetFirstStage:
             gen_output_activation=cfg["gen_output_activation"],
             const_shape=tuple(cfg["const_input_shape"]),
             n_features_first=cfg.get("n_generator_features", 256), dtype=self.compute_dtype,
-            rotation_resample=cfg.get("rotation_resample", "auto"),
+            rotation_resample=rotation_resample,
             upconv_impl=cfg.get("upconv_impl", "auto"), adain_impl=cfg.get("adain_impl", "auto"))
 
     def _build_modules(self) -> None:
-        self.generator = self._generator()
-        self.generator_smoothed = self._generator()
+        cfg = self.config
+        # The training generator resamples with a zero transform gradient
+        # (train steps never optimise rotations); the EMA generator renders.
+        self.generator = self._generator(cfg.get("rotation_resample_train", "auto_train"))
+        self.generator_smoothed = self._generator(cfg.get("rotation_resample", "auto"))
         self.synthetic_encoder = SyntheticDataEncoder(
-            self.facemodel_inputs_tuple, num_layers=self.config["num_synth_encoder_layers"],
+            self.facemodel_inputs_tuple, num_layers=cfg["num_synth_encoder_layers"],
             dtype=self.compute_dtype)
+        discriminator_kwargs = dict(
+            img_shape=tuple(cfg["output_shape"][:2]), num_resample=cfg["n_discr_layers"],
+            disc_kernel_size=cfg["discr_conv_kernel_size"],
+            disc_expansion_factor=cfg["n_discr_features_at_layer_0"],
+            disc_max_feature_maps=cfg["max_discr_filters"],
+            initial_from_rgb_layer_in_discr=cfg["initial_from_rgb_layer_in_discr"],
+            dtype=self.compute_dtype)
+        self.discriminator = HologanDiscriminator(**discriminator_kwargs)
+        self.synth_discriminator = HologanDiscriminator(**discriminator_kwargs)
+        self.latent_regressor = HologanLatentRegressor(latent_dim=cfg["latent_dim"],
+                                                       **discriminator_kwargs)
+        self.latent_discriminator = MLP(cfg["n_latent_discr_layers"], cfg["latent_dim"],
+                                        cfg["latent_dim"], 1, dtype=self.compute_dtype)
+        if cfg.get("backbones_dir") is not None:
+            raise NotImplementedError("loading Keras .h5 backbones (backbones_dir) is not ported "
+                                      "yet; load VGG weights with load_jax_params instead")
+        self.perceptual_loss = PerceptualLoss("imagenet", taps=cfg.get("perceptual_taps"))
 
     def initialize_network(self) -> None:
         """Seeded init on the CPU (the same weights on every device); the EMA
         generator starts as a copy of the generator."""
         rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)))
-        initializers.initialize(self.generator, rng)
-        initializers.initialize(self.synthetic_encoder, rng)
+        for name in ("generator", "synthetic_encoder", "discriminator", "synth_discriminator",
+                     "latent_discriminator", "latent_regressor"):
+            initializers.initialize(getattr(self, name), rng)
         self.generator_smoothed.load_state_dict(self.generator.state_dict())
 
     def _to_device(self) -> None:
         for name in self.WEIGHT_TREES:
             getattr(self, name).to(self.device).eval()
+        self.perceptual_loss.to(self.device)
+        self.generator_smoothed.requires_grad_(False)
+
+    def _make_optimizers(self) -> None:
+        """A fresh Adam per player (``set_weights`` resets them, as the JAX
+        package resets its optimizer states)."""
+        self._player_params = {
+            player: [p for tree in trees for p in getattr(self, tree).parameters()]
+            for player, trees in PLAYER_TREES.items()}
+        self.optimizers = {player: make_adam(params, self.config["optimizer"])
+                           for player, params in self._player_params.items()}
 
     # ------------------------------------------------------------------
     # Weights in the JAX package's checkpoint format
     # ------------------------------------------------------------------
 
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """{tree: {pytree path: ndarray}} for the trees this half holds."""
+        """{tree: {pytree path: ndarray}} for every tree in ``WEIGHT_TREES``."""
         return {name: export_jax_params(getattr(self, name)) for name in self.WEIGHT_TREES}
 
     def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]) -> None:
-        """Load {tree: {pytree path: ndarray}}; every tree this half holds
-        must be present.  Trees of the training slice (discriminators,
-        latent regressor) are not held yet and are ignored."""
+        """Load {tree: {pytree path: ndarray}}; every tree in ``WEIGHT_TREES``
+        must be present.  The optimizer states are reset."""
         for name in self.WEIGHT_TREES:
             if name not in weights:
                 raise KeyError(f"weights have no {name!r} tree")
             load_jax_params(getattr(self, name), weights[name])
+        self._make_optimizers()
+
+    def first_moments(self) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+        """{player: {tree: {pytree path: ndarray}}}: each optimizer's Adam
+        first moment in the checkpoint layout (zeros before its first step).
+        With ``beta_1 = 0`` it is the gradient of the player's last update."""
+        moments = {}
+        for player, trees in PLAYER_TREES.items():
+            state = self.optimizers[player].state
+            moments[player] = {
+                tree: export_jax_tensors(
+                    (name, state[p]["exp_avg"] if p in state else torch.zeros_like(p))
+                    for name, p in getattr(self, tree).named_parameters())
+                for tree in trees}
+        return moments
+
+    # ------------------------------------------------------------------
+    # Random draws of the step (override to pin them)
+    # ------------------------------------------------------------------
+
+    def _sample_latent(self, n: int) -> torch.Tensor:
+        shape = (n, self.config["latent_dim"])
+        if self.config["latent_distribution"] == "uniform":
+            return torch.rand(shape, generator=self._draws, device=self.device) * 2 - 1
+        return torch.randn(shape, generator=self._draws, device=self.device)
+
+    def _sample_rotations(self, n: int) -> torch.Tensor:
+        """Uniform in the configured ranges, in radians."""
+        ranges = torch.from_numpy(
+            np.asarray(self.config["rotation_ranges"], np.float32) * np.pi / 180.0).to(self.device)
+        u = torch.rand((n, 3), generator=self._draws, device=self.device)
+        return ranges[:, 0] + u * (ranges[:, 1] - ranges[:, 0])
+
+    def _flip_mask(self, n: int) -> torch.Tensor:
+        """Bernoulli(0.5) per image: which real images are hflipped."""
+        return torch.rand((n,), generator=self._draws, device=self.device) < 0.5
+
+    @staticmethod
+    def _to_unit_range(u8: torch.Tensor) -> torch.Tensor:
+        return u8.float() / 127.5 - 1.0
+
+    # ------------------------------------------------------------------
+    # The fused train step
+    # ------------------------------------------------------------------
+
+    def _update(self, player: str, loss: torch.Tensor) -> None:
+        """One Adam step of ``player`` on the gradient of ``loss`` with
+        respect to its own parameters (zero for a parameter loss ignores,
+        as the JAX step's)."""
+        params = self._player_params[player]
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.optimizers[player].step()
+        for p in params:
+            p.grad = None
+
+    def _g_step_losses(self, gb: Batch, z_real: torch.Tensor,
+                       rot_real: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The generator player's losses (first_stage.py:401-435)."""
+        cfg = self.config
+        losses: Dict[str, torch.Tensor] = {}
+        synth_latents = self.synthetic_encoder(gb["g_facemodel"])
+        out_synth = self.generator(synth_latents, gb["g_rotations"])
+        out_real = self.generator(z_real, rot_real)
+
+        gt = self._to_unit_range(gb["g_gt_imgs"])
+        losses["image_loss"] = cfg["image_loss_weight"] * self.perceptual_loss.loss_fn(gt, out_synth)
+        if cfg.get("pixel_loss_weight", 0.0) > 0.0:
+            losses["pixel_loss"] = cfg["pixel_loss_weight"] * (gt - out_synth).abs().mean()
+        losses["eye_loss"] = cfg["eye_loss_weight"] * eye_loss(gt, out_synth, gb["g_eye_masks"])
+
+        for i, head in enumerate(self.synth_discriminator(out_synth).values()):
+            losses[f"GAN_loss_synth_{i}"] = gan_g_loss(head)
+        for i, head in enumerate(self.discriminator(out_real).values()):
+            losses[f"GAN_loss_real_{i}"] = gan_g_loss(head)
+        losses["latent_GAN_loss"] = cfg["domain_adverserial_loss_weight"] * gan_g_loss(
+            self.latent_discriminator(synth_latents))
+
+        stacked_latents = torch.cat([synth_latents, z_real], dim=0)
+        stacked_outputs = torch.cat([out_synth, out_real], dim=0)
+        stacked_rotations = torch.cat([gb["g_rotations"], rot_real], dim=0)
+        labels = torch.cat([stacked_latents,
+                            cfg["latent_regressor_rot_weight"] * stacked_rotations], dim=-1)
+        losses["latent_regression_loss"] = cfg["latent_regression_weight"] * latent_regression_loss(
+            self.latent_regressor(stacked_outputs), labels)
+        losses["loss_sum"] = sum(losses.values())
+        return losses
+
+    def _build_train_step(self) -> Callable[[Batch], Dict[str, Dict[str, torch.Tensor]]]:
+        """``step(host_batch) -> {"g", "d", "synth_d", "latent_d"}`` loss
+        dicts (detached 0-d tensors on the device).  Updates the parameters,
+        the optimizers and the EMA generator in place."""
+        r1_heads = self.config.get("r1_heads", "all")
+        n_d_updates, n_g_updates, multi, sub_batch = self._sub_update_plan()
+
+        def no_grad(module, *inputs):
+            with torch.no_grad():
+                return module(*inputs)
+
+        def step(host_batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
+            batch = self._batch_to_device(host_batch)
+            batch_size = batch["d_real_imgs"].shape[1 if multi else 0]
+
+            for u in range(n_d_updates):
+                b = sub_batch(batch, u, g_fields=False)
+
+                # (a) image discriminator: real set vs G(z), pre-step G
+                real_imgs = batched_hflip(self._to_unit_range(b["d_real_imgs"]),
+                                          self._flip_mask(batch_size))
+                z = self._sample_latent(batch_size)
+                rot = self._sample_rotations(batch_size)
+                fake_imgs = no_grad(self.generator, z, rot)
+                d_losses = compute_discriminator_loss(self.discriminator, real_imgs, fake_imgs,
+                                                      r1_heads=r1_heads)
+                self._update("discriminator", d_losses["loss_sum"])
+
+                # (b) synthetic discriminator: synth set vs G(E_s(params))
+                synth_real = batched_hflip(self._to_unit_range(b["synth_d_real_imgs"]),
+                                           self._flip_mask(batch_size))
+                synth_latents = no_grad(self.synthetic_encoder, b["synth_d_facemodel"])
+                synth_fake = no_grad(self.generator, synth_latents, b["synth_d_rotations"])
+                synth_d_losses = compute_discriminator_loss(
+                    self.synth_discriminator, synth_real, synth_fake, r1_heads=r1_heads)
+                self._update("synth_discriminator", synth_d_losses["loss_sum"])
+
+                # (c) latent discriminator: z ~ prior vs E_s(params)
+                real_latents = self._sample_latent(batch_size)
+                fake_latents = no_grad(self.synthetic_encoder, b["latent_d_facemodel"])
+                latent_d_losses = compute_latent_discriminator_loss(
+                    self.latent_discriminator, real_latents, fake_latents)
+                self._update("latent_discriminator", latent_d_losses["loss_sum"])
+
+            # (d) generator + latent regressor + synthetic encoder, against
+            # the updated discriminators
+            for u in range(n_g_updates):
+                gb = sub_batch(batch, u, g_fields=True)
+                n_real = batch_size - gb["g_gt_imgs"].shape[0]
+                z_real = self._sample_latent(n_real)
+                rot_real = self._sample_rotations(n_real)
+                g_losses = self._g_step_losses(gb, z_real, rot_real)
+                self._update("generator", g_losses["loss_sum"])
+
+            # (e) EMA
+            ema_update(self.generator_smoothed, self.generator)
+            return {name: {k: v.detach() for k, v in losses.items()}
+                    for name, losses in (("g", g_losses), ("d", d_losses),
+                                         ("synth_d", synth_d_losses),
+                                         ("latent_d", latent_d_losses))}
+
+        return step
+
+    # ------------------------------------------------------------------
+    # Host-side batch assembly
+    # ------------------------------------------------------------------
+
+    def _facemodel_batch(self, dataset, idxs) -> Tuple[np.ndarray, ...]:
+        return tuple(np.ascontiguousarray(dataset.metadata_inputs[name][idxs], dtype=np.float32)
+                     for name in self.config["facemodel_inputs"].keys())
+
+    def _n_player_updates(self) -> Tuple[int, int]:
+        return (int(self.config.get("n_discriminator_updates", 1)),
+                int(self.config.get("n_generator_updates", 1)))
+
+    def _sub_update_plan(self):
+        """``(n_d, n_g, multi, sub_batch)``.  With n_*_updates > 1 the host
+        stacks a fresh batch per sub-update along a leading axis (each
+        sub-step of the reference resamples its own batch,
+        confignet_first_stage.py:604-612); ``sub_batch(batch, u, g_fields)``
+        picks one player's field group for sub-update ``u``."""
+        n_d, n_g = self._n_player_updates()
+        multi = n_d > 1 or n_g > 1
+
+        def sub_batch(batch: Batch, u: int, g_fields: bool) -> Batch:
+            picked = {k: v for k, v in batch.items() if k.startswith("g_") == g_fields}
+            if not multi:
+                return picked
+            return {k: [x[u] for x in v] if isinstance(v, list) else v[u]
+                    for k, v in picked.items()}
+
+        return n_d, n_g, multi, sub_batch
+
+    def _batch_to_device(self, batch: Batch) -> Batch:
+        """Host arrays (and tuples of them) -> tensors (lists) on the device."""
+        def put(value):
+            if isinstance(value, (tuple, list)):
+                return [put(v) for v in value]
+            return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+
+        return {k: put(v) for k, v in batch.items()}
+
+    def _sample_host_batch(self, real_training_set, synth_training_set) -> Batch:
+        """The host batch: one draw, or with ``n_discriminator_updates`` /
+        ``n_generator_updates`` > 1 a fresh draw per sub-update stacked on a
+        leading axis (D fields carry n_d entries, G fields n_g)."""
+        n_d, n_g = self._n_player_updates()
+        if n_d == 1 and n_g == 1:
+            return self._sample_host_batch_single(real_training_set, synth_training_set)
+        draws = [self._sample_host_batch_single(real_training_set, synth_training_set,
+                                                d_fields=u < n_d, g_fields=u < n_g)
+                 for u in range(max(n_d, n_g))]
+        return {k: _stack([d[k] for d in draws[:(n_g if k.startswith("g_") else n_d)]])
+                for k in draws[0]}
+
+    def _sample_host_batch_single(self, real_training_set, synth_training_set,
+                                  d_fields: bool = True, g_fields: bool = True) -> Batch:
+        rng = self._batch_rng
+        batch_size = self.config["batch_size"]
+        n_synth = batch_size // 2
+        n_synth_imgs = synth_training_set.imgs.shape[0]
+        rotations = synth_training_set.metadata_inputs["rotations"]
+        batch: Batch = {}
+        if d_fields:
+            d_idx = rng.randint(0, real_training_set.imgs.shape[0], batch_size)
+            sd_idx = rng.randint(0, n_synth_imgs, batch_size)
+            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            batch.update({
+                "d_real_imgs": np.ascontiguousarray(real_training_set.imgs[d_idx]),
+                "synth_d_real_imgs": np.ascontiguousarray(synth_training_set.imgs[sd_idx]),
+                "synth_d_facemodel": self._facemodel_batch(synth_training_set, sd_fm_idx),
+                "synth_d_rotations": np.ascontiguousarray(rotations[sd_fm_idx], dtype=np.float32),
+                "latent_d_facemodel": self._facemodel_batch(synth_training_set, ld_fm_idx),
+            })
+        if g_fields:
+            g_idx = rng.randint(0, n_synth_imgs, n_synth)
+            batch.update({
+                "g_facemodel": self._facemodel_batch(synth_training_set, g_idx),
+                "g_rotations": np.ascontiguousarray(rotations[g_idx], dtype=np.float32),
+                "g_gt_imgs": np.ascontiguousarray(synth_training_set.imgs[g_idx]),
+                "g_eye_masks": np.ascontiguousarray(np.asarray(synth_training_set.eye_masks)[g_idx]),
+            })
+        return batch
 
     # ------------------------------------------------------------------
     # Latent manipulation API

@@ -1,7 +1,7 @@
 """ConfigNet second stage, inference half (counterpart of
 ``confignet_tpu/training/second_stage.py``): adds the real-image encoder
-and ``encode_images``.  Training and the one-shot fine-tune come with later
-slices, in this file.
+and ``encode_images``.  The stage-2 training step and the one-shot
+fine-tune come with later slices, in this file.
 """
 from __future__ import annotations
 
@@ -35,6 +35,10 @@ class ConfigNet(ConfigNetFirstStage):
         super().initialize_network()
         rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)) + 1)
         initializers.initialize(self.real_encoder, rng)
+
+    def _build_train_step(self):
+        raise NotImplementedError("the stage-2 training step is not ported yet; "
+                                  "ConfigNetFirstStage has the stage-1 step")
 
     @torch.inference_mode()
     def encode_images(self, input_images, batch_chunk: int = 32) -> Tuple[np.ndarray, np.ndarray]:

@@ -10,6 +10,8 @@ from flax import traverse_util
 
 from confignet_tpu.core.init_cache import cached_init
 from confignet_tpu.models import blocks as jax_blocks
+from confignet_tpu.models.discriminator import HologanDiscriminator as JaxDiscriminator
+from confignet_tpu.models.discriminator import HologanLatentRegressor as JaxLatentRegressor
 from confignet_tpu.models.generator import HologanGenerator as JaxGenerator
 from confignet_tpu.models.real_encoder import RealEncoder as JaxRealEncoder
 from confignet_tpu.models.synthetic_encoder import SyntheticDataEncoder as JaxSyntheticEncoder
@@ -17,6 +19,7 @@ from confignet_tpu_torch.core.model_io import (
     export_jax_params, flatten_param_trees, load_jax_params, unflatten_param_trees)
 from confignet_tpu_torch.models import blocks
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
+from confignet_tpu_torch.models.discriminator import HologanDiscriminator, HologanLatentRegressor
 from confignet_tpu_torch.models.generator import HologanGenerator
 from confignet_tpu_torch.models.real_encoder import RealEncoder
 from confignet_tpu_torch.models.synthetic_encoder import SyntheticDataEncoder
@@ -211,6 +214,104 @@ def test_weights_round_trip_port_numpy_port():
     load_jax_params(other, {k.partition("/")[2]: v for k, v in back.items()})
     for (name, a), (_, b) in zip(gen.named_parameters(), other.named_parameters()):
         assert torch.equal(a, b), name
+
+
+def _carry(jmod, tmod, args, seed):
+    """Init the JAX module, perturb its weights, load them into the port's
+    module; returns (flat weights, JAX output on args)."""
+    params = jmod.init(jax.random.PRNGKey(seed), *map(jnp.asarray, args))["params"]
+    flat = perturbed(flat_params(params), seed=seed)
+    load_jax_params(tmod, flat)
+    jparams = traverse_util.unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    return flat, jmod.apply({"params": jparams}, *map(jnp.asarray, args))
+
+
+@pytest.mark.parametrize("size", [8, 7])
+@pytest.mark.parametrize("return_styles", [True, False])
+def test_discr_block_matches_jax(size, return_styles):
+    """Stride-2 TF SAME conv (even and odd sizes), styles from the conv
+    output before the LeakyReLU, std_instance_norm; atol 1e-4."""
+    x = np.random.default_rng(12).normal(size=(2, size, size, 5)).astype(np.float32)
+    tmod = blocks.DiscrBlock(5, 6, 3, return_styles=return_styles)
+    _, want = _carry(jax_blocks.DiscrBlock(num_feature_maps=6, kernel_size=3,
+                                           return_styles=return_styles), tmod, (x,), seed=size)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x))
+    if return_styles:
+        assert got[1].shape == (2, 12)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-4)
+        got, want = got[0], want[0]
+    assert got.shape == (2, (size + 1) // 2, (size + 1) // 2, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+DISCR_KW = dict(num_resample=3, disc_expansion_factor=4, disc_max_feature_maps=16)
+
+
+def test_discriminator_matches_jax_in_head_order():
+    """The three-layer tiny widths of TINY_FIRST_STAGE_CONFIG (4, 8, 16) at
+    32px; heads discr_style_0..2 then discr_final; atol 1e-4.  The final
+    Dense sees the trunk flattened channels-last, as in JAX."""
+    imgs = np.random.default_rng(13).uniform(-1, 1, size=(3, 32, 32, 3)).astype(np.float32)
+    tmod = HologanDiscriminator((32, 32), **DISCR_KW)
+    flat, want = _carry(JaxDiscriminator(img_shape=(32, 32), **DISCR_KW), tmod, (imgs,), seed=3)
+    assert flat["disc_map/kernel"].shape == (4 * 4 * 16, 1)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(imgs))
+    assert list(got) == ["discr_style_0", "discr_style_1", "discr_style_2", "discr_final"]
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(value), atol=1e-4, err_msg=key)
+
+
+def test_latent_regressor_matches_jax():
+    imgs = np.random.default_rng(14).uniform(-1, 1, size=(3, 32, 32, 3)).astype(np.float32)
+    tmod = HologanLatentRegressor(LATENT_DIM, (32, 32), **DISCR_KW)
+    _, want = _carry(JaxLatentRegressor(latent_dim=LATENT_DIM, img_shape=(32, 32), **DISCR_KW),
+                     tmod, (imgs,), seed=4)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(imgs)).numpy()
+    assert got.shape == (3, LATENT_DIM + 3)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
+
+
+def test_training_trees_round_trip_with_jax_keys():
+    """get_weights/set_weights carry all seven trees of the JAX checkpoint
+    (and the npz tree flattening) both ways; the keys are JAX's."""
+    from helpers import TINY_FIRST_STAGE_CONFIG
+    from confignet_tpu.training.first_stage import ConfigNetFirstStage as JaxFirstStage
+    from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+
+    jweights = {name: flat_params(tree) for name, tree in JaxFirstStage(
+        dict(TINY_FIRST_STAGE_CONFIG)).get_weights().items()}
+    model = ConfigNetFirstStage(dict(TINY_FIRST_STAGE_CONFIG), device="cpu")
+    weights = model.get_weights()
+    assert set(weights) == set(jweights) and len(weights) == 7
+    for name, tree in jweights.items():
+        assert set(weights[name]) == set(tree), name
+        assert all(weights[name][k].shape == v.shape for k, v in tree.items()), name
+    for name, key in (("discriminator", "block_0/conv/kernel"), ("discriminator", "block_2/in_gamma"),
+                      ("synth_discriminator", "style_classifier_1/kernel"),
+                      ("discriminator", "disc_map/kernel"), ("latent_regressor", "from_rgb/kernel"),
+                      ("latent_regressor", "latent_predictor/bias"),
+                      ("latent_discriminator", "dense_1/kernel")):
+        assert key in weights[name], (name, key)
+    vgg = export_jax_params(model.perceptual_loss.vgg)
+    assert set(vgg) == {"block1_conv1/kernel", "block1_conv1/bias", "block1_conv2/kernel",
+                        "block1_conv2/bias"}
+
+    model.set_weights(unflatten_and_flatten(jweights))
+    back = model.get_weights()
+    for name, tree in jweights.items():
+        for key, value in tree.items():
+            np.testing.assert_array_equal(back[name][key], value, err_msg=f"{name}/{key}")
+    with pytest.raises(KeyError, match="latent_discriminator"):
+        model.set_weights({k: v for k, v in jweights.items() if k != "latent_discriminator"})
+
+
+def unflatten_and_flatten(weights):
+    """Through the npz layout: {tree/path: array} and back."""
+    trees = unflatten_param_trees(flatten_param_trees(weights))
+    return {name: flatten_param_trees({"": tree}) for name, tree in trees.items()}
 
 
 def test_load_jax_params_rejects_mismatch():

@@ -59,10 +59,12 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     """A wrapper takes its plain version only for CPU tensors; anything else
     that is not CUDA raises instead of falling back."""
     from confignet_tpu_torch.ops.adain_cuda import fused_adain
-    from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_kernel
+    from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_kernel, rotate_3d_grid_transpose
 
     meta = torch.empty((1, 4, 4, 4, 2), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         rotate_3d_grid_kernel(meta, torch.empty((1, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rotate_3d_grid_transpose(meta, torch.empty((1, 3, 3), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         fused_adain(meta, torch.empty((1, 2), device="meta"), torch.empty((1, 2), device="meta"))

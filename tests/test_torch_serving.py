@@ -36,7 +36,8 @@ def servers():
     jsrv = JaxServer(jmodel, chunk=4)
 
     model = ConfigNet(dict(TINY_FIRST_STAGE_CONFIG), device="cpu")
-    model.set_weights({"generator": _flat(jsrv._gen_params),
+    model.set_weights({**{name: _flat(tree) for name, tree in weights.items()},
+                       "generator": _flat(jsrv._gen_params),
                        "generator_smoothed": _flat(jsrv._gen_params),
                        "synthetic_encoder": _flat(jsrv._synth_params),
                        "real_encoder": _flat(jsrv._enc_params)})
