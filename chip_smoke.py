@@ -11,7 +11,11 @@
    path's shapes, in float32 and bfloat16, and times the kernel, the plain
    version and one PyTorch library call that computes the same function,
    beside the least time the card could take (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, whichever is larger).
+   float32 operations over 67 TFLOP/s, whichever is larger).  Each time is
+   taken twice: ``ms`` over back-to-back launches (which the host may pace)
+   and ``device_ms`` by replaying a CUDA graph of 10 launches.  AdaIN runs
+   on the route adain_route picks (printed per site) and, for comparison,
+   on the two-pass route, timed in turns.
 4. Serves requests at full width (256px, bf16, 145-dim latents, weights
    from seed 0) through ConfigNetServer(chunk=32): encode 40 photos,
    re-render them with a spliced attribute, generate 256 latents.  The
@@ -23,11 +27,15 @@
 6. Holds the rotation's transpose kernel (the backward of the resample) against
    its plain version at the train step's shapes (B=12, 24; float32 atol 2e-4,
    bf16 3e-2 relative), twice, and times it beside the input gradient of
-   F.grid_sample; times the AdaIN backward (torch ops) at the six 256px sites.
+   F.grid_sample.  Holds the AdaIN backward kernel against its plain version
+   (torch ops) at the six 256px sites, B=12 and 24, float32 and bf16, on its
+   own route and the two-pass route; two launches must agree bit for bit;
+   times it beside the autograd backward of F.group_norm + affine.
 7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
    layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
    fake dataset of 64 images: float32, one warm-up and 3 timed steps, each with
-   exactly 4 rotation-forward, 2 transpose and 24 AdaIN launches, finite losses,
+   exactly 4 rotation-forward, 2 transpose, 24 AdaIN-forward and 12
+   AdaIN-backward launches, finite losses,
    a nonzero gradient for every generator-player parameter and a moving EMA;
    then bfloat16, the same.  Then one float32 step of a kernel-path model and
    of a plain-path model (gather rotation, plain AdaIN) on the same weights,
@@ -59,7 +67,9 @@ from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_
 from confignet_tpu_torch.models import generator as generator_module
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
 from confignet_tpu_torch.ops import cuda_build
-from confignet_tpu_torch.ops.adain_cuda import fused_adain_backward, fused_adain_forward, fused_adain_plain
+from confignet_tpu_torch.ops.adain_cuda import (
+    adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
+    fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
     rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
     rotate_3d_grid_transpose_plain)
@@ -141,6 +151,35 @@ def time_ms(fn, budget_ms: float = 60.0, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, reps: int = 10, replays: int = 5, stream=None) -> float:
+    """Device time of one fn() without the host's launch pacing: ``reps``
+    calls captured in one CUDA graph (on ``stream``, where given), the graph
+    replayed back to back and timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def in_turns(first, second) -> tuple:
+    """device_ms of two versions of one function measured in turns (first,
+    second, second, first); each the mean of its two readings."""
+    a1, b1, b2, a2 = device_ms(first), device_ms(second), device_ms(second), device_ms(first)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def bound(n_bytes: float, flops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -185,6 +224,7 @@ def rotate_phase(batch: int, dtype, records: list):
                shape=list(grid.shape), max_abs_err=err, checked_err=checked,
                library_max_abs_err=lib_err,
                ms=time_ms(lambda: rotate_3d_grid_forward(grid, transform)),
+               device_ms=device_ms(lambda: rotate_3d_grid_forward(grid, transform)),
                plain_ms=time_ms(lambda: rotate_3d_grid_plain(grid, transform)),
                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
@@ -193,15 +233,29 @@ def rotate_phase(batch: int, dtype, records: list):
         raise AssertionError(f"rotate kernel disagrees with its plain version: {rec}")
 
 
+def site(positions: int, channels: int) -> str:
+    return f"{positions}x{channels}"
+
+
 def adain_phase(batch: int, positions: int, channels: int, dtype, records: list):
+    """The forward kernel on the route adain_route picks and on the two-pass
+    route, each against the plain version, timed beside the plain version
+    and F.group_norm + affine: ``ms`` by back-to-back launches, ``device_ms``
+    by CUDA-graph replay (kernel and two-pass route in turns)."""
     gen = torch.Generator(device="cuda").manual_seed(positions * channels + batch)
     x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
     scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
     bias = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
-    got = fused_adain_forward(x, scale, bias)
-    want = fused_adain_plain(x, scale, bias)
+    smem, sms = device_limits(x.device.index)
+    plan = adain_route(batch, positions, channels, dtype, smem, sms)
+    two_pass = adain_two_pass_plan(batch, positions, channels, dtype, sms)
+    got, stats = fused_adain_forward(x, scale, bias)
+    got_two, stats_two = launch_forward(x, scale, bias, 1e-3, two_pass)
+    want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
+    _, checked_two = compare(got_two, want)
+    stats_err = max(compare(s, want_stats)[0] for s in (stats, stats_two))
 
     x_cf = x.transpose(1, 2).contiguous()  # group_norm's channels-first layout
     gain, shift = (scale + 1)[:, :, None], bias[:, :, None]
@@ -209,17 +263,31 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     def library():
         return F.group_norm(x_cf, channels, eps=1e-3) * gain + shift
 
+    def kernel():
+        return fused_adain_forward(x, scale, bias)
+
+    def old_route():
+        return launch_forward(x, scale, bias, 1e-3, two_pass)
+
     elem = x.element_size()
     n_bytes = 2 * x.numel() * elem + 2 * scale.numel() * elem
     bound_ms, bound_by = bound(n_bytes, ADAIN_FLOPS_PER_ELEMENT * x.numel())
+    kernel_device, two_pass_device = in_turns(kernel, old_route)
     rec = dict(kernel="adain_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(x.shape), max_abs_err=err, checked_err=checked,
-               ms=time_ms(lambda: fused_adain_forward(x, scale, bias)),
-               plain_ms=time_ms(lambda: fused_adain_plain(x, scale, bias)),
-               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
+               shape=list(x.shape), site=site(positions, channels), route=plan.route,
+               plan=plan._asdict(), max_abs_err=err, checked_err=checked,
+               two_pass_checked_err=checked_two, stats_max_abs_err=stats_err,
+               ms=time_ms(kernel), device_ms=kernel_device,
+               two_pass_ms=time_ms(old_route), two_pass_device_ms=two_pass_device,
+               plain_ms=time_ms(lambda: fused_adain_plain_with_stats(x, scale, bias)),
+               plain_device_ms=device_ms(lambda: fused_adain_plain_with_stats(x, scale, bias)),
+               library_ms=time_ms(library), library_device_ms=device_ms(library),
+               bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
-    if not checked <= TOL[rec["dtype"]]["adain"]:
+    tol = TOL[rec["dtype"]]["adain"]
+    if not (checked <= tol and checked_two <= tol and stats_err <= 1e-4 * max(
+            1.0, want_stats.abs().max().item())):
         raise AssertionError(f"AdaIN kernel disagrees with its plain version: {rec}")
 
 
@@ -261,6 +329,7 @@ def transpose_phase(batch: int, dtype, records: list):
                shape=list(ct.shape), max_abs_err=err, checked_err=checked, repeat_err=repeat,
                library_max_abs_err=lib_err,
                ms=time_ms(lambda: rotate_3d_grid_transpose(ct, transform)),
+               device_ms=device_ms(lambda: rotate_3d_grid_transpose(ct, transform)),
                plain_ms=time_ms(lambda: rotate_3d_grid_transpose_plain(ct, transform)),
                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
                bound_with_scratch_ms=bound(n_bytes + scratch, 0)[0])
@@ -272,31 +341,71 @@ def transpose_phase(batch: int, dtype, records: list):
 
 
 def adain_backward_phase(batch: int, positions: int, channels: int, dtype, records: list):
-    """Times the AdaIN backward (torch ops, the JAX package's XLA math) beside
-    the autograd backward of F.group_norm + affine; not a kernel."""
+    """The backward kernel against its plain version (the torch-op backward)
+    on the same saved statistics, launched twice (the two results must be
+    equal bit for bit: fixed-order sums), also on the two-pass route; timed
+    beside the plain version and the autograd backward of F.group_norm +
+    affine."""
     gen = torch.Generator(device="cuda").manual_seed(positions * channels + batch + 7)
     x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
     g = torch.randn((batch, positions, channels), generator=gen, device="cuda").to(dtype)
     scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
     bias = torch.zeros((batch, channels), device="cuda", dtype=dtype)
+    smem, sms = device_limits(x.device.index)
+    plan = adain_route(batch, positions, channels, dtype, smem, sms, backward=True)
+    two_pass = adain_two_pass_plan(batch, positions, channels, dtype, sms)
+    _, stats = fused_adain_forward(x, scale, bias)
+    got = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    again = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    got_two = launch_backward(x, g, stats, scale, bias.dtype, two_pass)
+    want = fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
+    torch.cuda.synchronize()
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    err, checked = compare(got[0], want[0])
+    _, checked_two = compare(got_two[0], want[0])
+    sums_err = max((a.float() - b.float()).abs().max().item()
+                   / max(1.0, b.float().abs().max().item())
+                   for pair in (got, got_two) for a, b in zip(pair[1:], want[1:]))
 
-    x_cf = x.transpose(1, 2).contiguous().requires_grad_(True)
-    gain = (scale.detach().clone() + 1).requires_grad_(True)
-    shift = bias.detach().clone().requires_grad_(True)
-    out = F.group_norm(x_cf, channels, eps=1e-3) * gain[:, :, None] + shift[:, :, None]
-    g_cf = g.transpose(1, 2).contiguous()
+    # the library's forward runs on a side stream: autograd runs the backward
+    # on the forward's stream, which the graph capture must then use too
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x_cf = x.transpose(1, 2).contiguous().requires_grad_(True)
+        gain = (scale.detach().clone() + 1).requires_grad_(True)
+        shift = bias.detach().clone().requires_grad_(True)
+        out = F.group_norm(x_cf, channels, eps=1e-3) * gain[:, :, None] + shift[:, :, None]
+        g_cf = g.transpose(1, 2).contiguous()
+    torch.cuda.current_stream().wait_stream(side)
 
     def library():
         return torch.autograd.grad(out, (x_cf, gain, shift), g_cf, retain_graph=True)
 
+    def kernel():
+        return fused_adain_backward(x, g, stats, scale, bias.dtype)
+
+    def plain():
+        return fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
+
     elem = x.element_size()
     n_bytes = 3 * x.numel() * elem + 3 * scale.numel() * elem  # x, g read; dx written
-    rec = dict(kernel="adain_backward_torch", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(x.shape),
-               ms=time_ms(lambda: fused_adain_backward(x, scale, g, 1e-3, bias.dtype)),
-               library_ms=time_ms(library), bound_ms=bound(n_bytes, 0)[0], bound_by="bytes")
+    rec = dict(kernel="adain_backward_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
+               shape=list(x.shape), site=site(positions, channels), route=plan.route,
+               plan=plan._asdict(), max_abs_err=err, checked_err=checked,
+               two_pass_checked_err=checked_two, sums_err=sums_err, repeat_equal=repeat_equal,
+               ms=time_ms(kernel), device_ms=device_ms(kernel),
+               two_pass_ms=time_ms(lambda: launch_backward(x, g, stats, scale, bias.dtype,
+                                                           two_pass)),
+               plain_ms=time_ms(plain), plain_device_ms=device_ms(plain),
+               library_ms=time_ms(library), library_device_ms=device_ms(library, stream=side),
+               bound_ms=bound(n_bytes, 0)[0], bound_by="bytes")
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
+    tol = TOL[rec["dtype"]]["adain"]
+    sums_tol = 1e-4 if dtype == torch.float32 else tol
+    if not (repeat_equal and checked <= tol and checked_two <= tol and sums_err <= sums_tol):
+        raise AssertionError(f"AdaIN backward kernel disagrees with its plain version: {rec}")
 
 
 class FakeDataset:
@@ -318,12 +427,16 @@ def train_config(compute_dtype: str, **extra):
     return dict(TRAIN_CONFIG, compute_dtype=compute_dtype, **extra)
 
 
+KERNEL_WRAPPERS = (rotate_3d_grid_forward, rotate_3d_grid_transpose, fused_adain_forward,
+                   fused_adain_backward)
+LAUNCH_NAMES = ("rotate", "transpose", "adain", "adain_backward")
+# per 256px train step: rotation forward, transpose, AdaIN forward (6 sites x
+# 4 generator passes), AdaIN backward (6 sites x the G step's 2 halves of 12)
+TRAIN_STEP_LAUNCHES = (4, 2, 24, 12)
+
+
 def train_launches():
-    return (rotate_3d_grid_forward.launches, rotate_3d_grid_transpose.launches,
-            fused_adain_forward.launches)
-
-
-TRAIN_STEP_LAUNCHES = (4, 2, 24)  # rotation forward, transpose, AdaIN per 256px train step
+    return tuple(w.launches for w in KERNEL_WRAPPERS)
 
 
 def check_finite(losses, label):
@@ -345,9 +458,8 @@ def train_run(model, dataset, label: str, card: str, kind: str):
     check_finite(step(batches[0]), label)
     warmup_s = time.perf_counter() - t0
 
-    rotate_3d_grid_forward.launches = 0
-    rotate_3d_grid_transpose.launches = 0
-    fused_adain_forward.launches = 0
+    for wrapper in KERNEL_WRAPPERS:
+        wrapper.launches = 0
     all_losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -356,7 +468,7 @@ def train_run(model, dataset, label: str, card: str, kind: str):
         all_losses.append(step(batch))
         delta = tuple(after - b for after, b in zip(train_launches(), before))
         if delta != TRAIN_STEP_LAUNCHES:
-            raise AssertionError(f"{label}: launches (rotate, transpose, adain) {delta} in one "
+            raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {delta} in one "
                                  f"step, expected {TRAIN_STEP_LAUNCHES}")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -366,7 +478,7 @@ def train_run(model, dataset, label: str, card: str, kind: str):
     rec = dict(run=label, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=seconds,
                steps_per_s=TRAIN_STEPS / seconds, img_per_s=TRAIN_STEPS * TRAIN_BATCH / seconds,
                warmup_s=warmup_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=dict(zip(("rotate", "transpose", "adain"), launches)),
+               launches=dict(zip(LAUNCH_NAMES, launches)),
                last_losses={g: {k: float(v) for k, v in d.items()} for g, d in all_losses[-1].items()})
     print(f"train {label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} in {seconds * 1e3:.1f} ms = "
           f"{rec['steps_per_s']:.3f} steps/s, {rec['img_per_s']:.1f} img/s on {kind} ({card}); "
@@ -659,12 +771,14 @@ def main() -> int:
     del model_k, model_p
     torch.cuda.empty_cache()
 
-    # -- 6. transpose kernel; AdaIN backward ---------------------------------------
+    # -- 6. transpose kernel; AdaIN backward kernel ----------------------------------
     for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
         for dtype in (torch.float32, torch.bfloat16):
             transpose_phase(batch, dtype, records)
-    for positions, channels in ADAIN_SITES_256:
-        adain_backward_phase(TRAIN_BATCH // 2, positions, channels, torch.bfloat16, records)
+    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
+        for dtype in (torch.float32, torch.bfloat16):
+            for positions, channels in ADAIN_SITES_256:
+                adain_backward_phase(batch, positions, channels, dtype, records)
     torch.cuda.empty_cache()
 
     # -- 7. stage-1 training at full width ---------------------------------------------
@@ -696,20 +810,24 @@ def main() -> int:
         shapes, each counted as often as the step launches it."""
         picked = [(r, n) for r in records for (name, batch), n in phase_counts.items()
                   if r["kernel"] == name and r["batch"] == batch and r["dtype"] == "float32"]
-        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+        item = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
                 "ms": sum(r["ms"] * n for r, n in picked),
+                "device_ms": sum(r["device_ms"] * n for r, n in picked),
                 "plain_ms": sum(r["plain_ms"] * n for r, n in picked),
                 "bound_ms": sum(r["bound_ms"] * n for r, n in picked),
                 "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in picked)
                 else "operations",
                 "library_ms": sum(r["library_ms"] * n for r, n in picked),
                 "serving_launches": serving_launches.get(kernel)}
+        if any("site" in r for r, _ in picked):  # AdaIN: the route of each site and batch
+            item["site_routes"] = {f"B{r['batch']} {r['site']}": r["route"] for r, _ in picked}
+        return item
 
     serving_launches = main_launches
     half = TRAIN_BATCH // 2
-    n_rot, n_transpose, n_adain = train_main_launches
+    n_rot, n_transpose, n_adain, n_adain_backward = train_main_launches
     kernels = [
         entry("rotate_cuda", "confignet_tpu_torch/csrc/rotate.cu",
               "confignet_tpu/ops/rotate_pallas.py:65", n_rot,
@@ -720,6 +838,9 @@ def main() -> int:
         entry("adain_cuda", "confignet_tpu_torch/csrc/adain.cu",
               "confignet_tpu/ops/adain_pallas.py:29", n_adain,
               {("adain_cuda", TRAIN_BATCH): 2, ("adain_cuda", half): 2}),
+        entry("adain_backward_cuda", "confignet_tpu_torch/csrc/adain.cu",
+              "confignet_tpu/ops/adain_pallas.py:87", n_adain_backward,
+              {("adain_backward_cuda", half): 2}),
     ]
     for item in kernels:
         if item["launches"] < 1:

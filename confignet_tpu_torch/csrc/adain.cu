@@ -1,180 +1,857 @@
-// Fused AdaIN forward: per (sample, channel) instance norm over all spatial
-// positions, then the latent modulation,
-//     out = (x - mean) * rsqrt(var + eps) * (scale + 1) + bias,
-// on a (B, P, C) channels-last view; statistics in float32, output in x's
-// dtype, var the biased variance mean((x - mean)^2).
+// Fused AdaIN, forward and backward, on a (B, P, C) channels-last view:
+//     out = (x - mean) * rstd * (scale + 1) + bias,  rstd = rsqrt(var + eps),
+// per (sample, channel) statistics over all P spatial positions in float32,
+// var the biased variance mean((x - mean)^2), out in x's dtype.  The forward
+// also writes stats (B, 2, C) float32 = (mean, rstd), which the backward
+// reads:
+//     dbias = sum_p g,  dscale = sum_p g * xhat,  xhat = (x - mean) * rstd,
+//     dx = rstd * (scale + 1) * (g - dbias / P - xhat * dscale / P).
 //
 // Replaces the Pallas TPU kernel _adain_kernel
-// (confignet_tpu/ops/adain_pallas.py, launched by _fused_adain_3dview).  The
-// TPU kernel keeps one sample's whole (P, C) slab in VMEM and runs the
-// samples in order; a Hopper block has at most 227 KB of shared memory, the
-// largest site (P = 65536 at 512px) does not fit, and one block per sample
-// would leave most of the 132 SMs idle (the 256px sites with C = 32 give
-// only B blocks).  So the positions are cut into chunks across blocks and
-// the reduction across chunks takes a second kernel.
+// (confignet_tpu/ops/adain_pallas.py, launched by _fused_adain_3dview) and
+// the XLA backward _fused_adain_bwd of the same file.  The TPU kernel keeps
+// one sample's whole (P, C) slab in VMEM.  A Hopper block has at most 227 KB
+// of shared memory, the 256px slabs reach 2 MB (128^2 x 32 float32), and
+// one block per sample would leave most of the 132 SMs idle.
 //
-// Bound: memory.  The least traffic is one read of x and one write of out;
-// this pair of kernels reads x twice (statistics, then normalise), so it can
-// reach at best two thirds of the bandwidth bound.
+// Bound: memory.  The least traffic is one read of x and one write of out
+// (forward), one read of x and g and one write of dx (backward).
 //
-// Design: blocks of (lanes <= 32 channels) x (rows) threads, one per
-// (channel group, chunk of positions, sample); threadIdx.x runs across
-// channels (coalesced rows).
-// 1. adain_stats_kernel: each thread keeps a Welford (count, mean, M2) over
-//    its rows of the chunk; the block merges them with Chan's formula (a
-//    tree, rows a power of two) and writes the chunk's (mean, M2) per
-//    channel.  As exact as two passes (mean, then centred variance), and it
-//    avoids the cancellation of E[x^2] - E[x]^2.
-// 2. adain_apply_kernel: each block merges the chunks' partials (spread
-//    over its rows, then the same tree, in a fixed order: every block and
-//    every run gets the same statistics), then normalises and modulates its
-//    chunk.
+// Route 1, one pass (adain_fwd_cluster, adain_bwd_cluster).  The (P, group)
+// slab of one sample and one group of channels is cut across the `parts`
+// blocks of a thread block cluster.  Each block copies its rows into shared
+// memory once (16-byte cp.async where the channel count allows) and keeps
+// them there.  Forward: the block's per-channel sum, then the sum of squares
+// about its own mean from the resident rows (no division per element, no
+// E[x^2] - E[x]^2 cancellation).  Backward: sum g and sum g * xhat, each of
+// four stages of the copy summed as it lands (the forward's centred sums
+// need the whole block first; staging it measured no faster).  Each
+// block leaves its partials in its own shared memory, the cluster
+// synchronises, and every block reads all partials through distributed
+// shared memory and merges them in rank order: every block, and every run,
+// gets the same bits, without atomics.  Then each block writes its resident
+// rows once.  That is the bound's traffic: x read once, out written once
+// (forward); x and g read once, dx written once (backward).
+//
+// Route 2, two passes (adain_fwd_partials + adain_fwd_apply,
+// adain_bwd_partials + adain_bwd_apply), for slabs that a cluster cannot
+// hold (the 512px site 256^2 x 16 in float32).  The positions are cut into
+// chunks across ordinary blocks; the first kernel writes per-chunk partials
+// to a float32 scratch, the second merges them in chunk order and writes
+// the chunk.  It reads x (and g) twice: at best two thirds of the bound.
+// The forward's per-thread statistics are sums shifted by the thread's first
+// value (one division per thread, not per element).
+//
+// Both routes use the same thread layout: 256 threads, each owning `vec`
+// neighbouring channels (16 bytes, or 1 channel where C does not allow
+// that) of the group and every lanes-th row; per-channel sums over the rows
+// of a block are a tree over the lanes in shared memory, in a fixed order.
+// Which route and which (group, parts) a shape takes is decided in Python
+// (ops/adain_cuda.py adain_route) from the shape, the dtype, the card's
+// shared memory per block and its SM count; shared_bytes() here repeats
+// its arithmetic for the shared memory size.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mean_b,
-                                           float m2_b) {
-  if (nb == 0.f) return;
-  const float total = n + nb;
-  const float delta = mean_b - mean;
-  const float weight = nb / total;
-  mean += delta * weight;
-  m2 += m2_b + delta * delta * n * weight;
-  n = total;
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// Rows a block covers at once: a power of two, lanes * (group / vec) <= 256.
+__host__ __device__ inline int lanes_for(int group, int vec) {
+  const int cols = group / vec;
+  int lanes = 1;
+  while (lanes * 2 * cols <= kThreads) lanes *= 2;
+  return lanes;
 }
 
-// Merge the (count, mean, M2) of the threads that share threadIdx.x, a tree
-// over threadIdx.y (blockDim.y a power of two); every thread ends with its
-// channel's result.  The merge order is fixed, so every block gets the same
-// bits.
-__device__ __forceinline__ void block_merge(float& n, float& mean, float& m2) {
-  __shared__ float s_n[kThreads], s_mean[kThreads], s_m2[kThreads];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  s_n[tid] = n;
-  s_mean[tid] = mean;
-  s_m2[tid] = m2;
-  __syncthreads();
-  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.y < stride) {
-      const int other = tid + stride * blockDim.x;
-      chan_merge(s_n[tid], s_mean[tid], s_m2[tid], s_n[other], s_mean[other], s_m2[other]);
-    }
-    __syncthreads();
-  }
-  n = s_n[threadIdx.x];
-  mean = s_mean[threadIdx.x];
-  m2 = s_m2[threadIdx.x];
-}
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 __device__ __forceinline__ float load_param(const void* p, int dtype, size_t i) {
   return dtype == kBFloat16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
                             : static_cast<const float*>(p)[i];
 }
 
-// partial: (B, chunks, 2, C) float32 -- each chunk's (mean, M2) per channel
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adain_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int P, int C,
-                   int chunk_rows) {
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p_end = min(P, (chunk + 1) * chunk_rows);
-  const T* xb = x + (size_t)b * P * C;
-
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  if (c < C) {
-    for (int p = chunk * chunk_rows + threadIdx.y; p < p_end; p += blockDim.y) {
-      const float v = to_f32(xb[(size_t)p * C + c]);
-      n += 1.f;
-      const float delta = v - mean;
-      mean += delta / n;
-      m2 += delta * (v - mean);
-    }
-  }
-  block_merge(n, mean, m2);
-  if (threadIdx.y == 0 && c < C) {
-    float* out = partial + ((size_t)b * chunks + chunk) * 2 * C;
-    out[c] = mean;
-    out[C + c] = m2;
+__device__ __forceinline__ void store_param(void* p, int dtype, size_t i, float v) {
+  if (dtype == kBFloat16) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adain_apply_kernel(const T* __restrict__ x, const float* __restrict__ partial,
-                   const void* __restrict__ scale, const void* __restrict__ bias, T* __restrict__ out,
-                   int P, int C, int chunk_rows, long long scale_stride, long long bias_stride,
-                   int scale_dtype, int bias_dtype, float eps) {
-  __shared__ float s_mu[32], s_gain[32], s_shift[32];
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  if (c < C) {
-    const float* part = partial + (size_t)b * chunks * 2 * C;
-    for (int k = threadIdx.y; k < chunks; k += blockDim.y) {
-      const float nk = (float)max(0, min(P, (k + 1) * chunk_rows) - k * chunk_rows);
-      chan_merge(n, mean, m2, nk, part[(size_t)k * 2 * C + c], part[(size_t)k * 2 * C + C + c]);
-    }
+// Copy one pack from global to shared memory: cp.async for 16 bytes, a
+// plain load and store otherwise (cp.async takes no 2-byte copies).
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_pack(T* dst, const T* src) {
+  if constexpr (sizeof(Pack<T, VEC>) == 16) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    *reinterpret_cast<Pack<T, VEC>*>(dst) = *reinterpret_cast<const Pack<T, VEC>*>(src);
   }
-  block_merge(n, mean, m2);
-  if (threadIdx.y == 0 && c < C) {
-    const float rstd = rsqrtf(m2 / (float)P + eps);
-    s_mu[threadIdx.x] = mean;
-    s_gain[threadIdx.x] = rstd * (load_param(scale, scale_dtype, b * scale_stride + c) + 1.f);
-    s_shift[threadIdx.x] = load_param(bias, bias_dtype, b * bias_stride + c);
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int kStages = 4;
+
+__device__ __forceinline__ void commit_stage() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until the thread's copies of stages 0 .. s have landed.
+__device__ __forceinline__ void wait_stage(int s) {
+  switch (kStages - 1 - s) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_f32(const T* p, float (&out)[VEC]) {
+  const Pack<T, VEC> pack = *reinterpret_cast<const Pack<T, VEC>*>(p);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_f32(pack.v[i]);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_from_f32(T* p, const float (&in)[VEC]) {
+  Pack<T, VEC> pack;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) pack.v[i] = from_f32<T>(in[i]);
+  *reinterpret_cast<Pack<T, VEC>*>(p) = pack;
+}
+
+// Per-block thread layout: thread -> (column of `vec` channels, lane of rows).
+struct Layout {
+  int col, lane, lanes;
+  bool active;  // the thread owns a column (tail threads beyond lanes * cols idle)
+  __device__ Layout(int group, int vec) {
+    const int cols = group / vec;
+    lanes = lanes_for(group, vec);
+    col = threadIdx.x % cols;
+    lane = threadIdx.x / cols;
+    active = lane < lanes;
+  }
+};
+
+// Sum v over the lanes for every channel of the group: a tree in `red`
+// (lanes x group floats), fixed order.  Every thread then reads the totals
+// from red[0 .. group).  Ends with __syncthreads; the caller syncs again
+// before reusing red.
+template <int VEC>
+__device__ __forceinline__ void lane_sum(const Layout& t, int group, float* red,
+                                         const float (&v)[VEC]) {
+  if (t.active) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) red[t.lane * group + t.col * VEC + i] = v[i];
   }
   __syncthreads();
-  if (c >= C) return;
-  const float mu = s_mu[threadIdx.x], gain = s_gain[threadIdx.x], shift = s_shift[threadIdx.x];
-  const T* xb = x + (size_t)b * P * C;
-  T* ob = out + (size_t)b * P * C;
-  const int p_end = min(P, (chunk + 1) * chunk_rows);
-  for (int p = chunk * chunk_rows + threadIdx.y; p < p_end; p += blockDim.y) {
-    const size_t i = (size_t)p * C + c;
-    ob[i] = from_f32<T>((to_f32(xb[i]) - mu) * gain + shift);
+  for (int stride = t.lanes / 2; stride > 0; stride >>= 1) {
+    if (t.active && t.lane < stride) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        red[t.lane * group + t.col * VEC + i] += red[(t.lane + stride) * group + t.col * VEC + i];
+    }
+    __syncthreads();
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* scale, const void* bias, void* out, float* partial, int B,
-            int P, int C, int chunks, long long scale_stride, long long bias_stride,
-            int scale_dtype, int bias_dtype, float eps, cudaStream_t s) {
-  const int lanes = C < 32 ? C : 32;
-  int rows = 1;
-  while (rows * 2 * lanes <= kThreads) rows *= 2;
-  const dim3 threads(lanes, rows);
-  const dim3 blocks((C + lanes - 1) / lanes, chunks, B);
-  const int chunk_rows = (P + chunks - 1) / chunks;
-  adain_stats_kernel<T><<<blocks, threads, 0, s>>>(static_cast<const T*>(x), partial, P, C,
-                                                    chunk_rows);
-  adain_apply_kernel<T><<<blocks, threads, 0, s>>>(
-      static_cast<const T*>(x), partial, scale, bias, static_cast<T*>(out), P, C, chunk_rows,
-      scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
+// Split cluster barrier: arrive once this block is done reading the other
+// blocks' shared memory, wait before exiting (a block's shared memory must
+// outlive every remote read of it).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// How many rows part `k` holds when P rows are cut into parts of `per` rows.
+__host__ __device__ inline int part_rows(int P, int per, int k) {
+  const int begin = k * per;
+  const int end = P < begin + per ? P : begin + per;
+  return end > begin ? end - begin : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Route 1: one pass per cluster.  grid (parts * groups, B), cluster (parts).
+// Shared memory: tiles (per x 16-byte-aligned rows * group of T), then
+// red (lanes * group floats), part (2 * group floats, read by the whole
+// cluster) and merged (3 * group floats).
+// ---------------------------------------------------------------------------
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_fwd_cluster(const T* __restrict__ x, const void* __restrict__ scale,
+                  const void* __restrict__ bias, T* __restrict__ out, float* __restrict__ stats,
+                  int P, int C, int group, int parts, long long scale_stride,
+                  long long bias_stride, int scale_dtype, int bias_dtype, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c0 = (blockIdx.x / parts) * group;
+  const int b = blockIdx.y;
+  const int per = (P + parts - 1) / parts;
+  const int row0 = rank * per;
+  const int rows = part_rows(P, per, rank);
+  const Layout t(group, VEC);
+  T* tile = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + align16((size_t)per * group * sizeof(T)));
+  float* part = red + t.lanes * group;  // (sum, M2) per channel of the group
+  float* merged = part + 2 * group;     // (mean, gain, shift) per channel, this block's copy
+  const int c = c0 + t.col * VEC;       // first channel of this thread's column
+  const bool live = t.active && c < C;  // C % VEC == 0, so a column is all in or all out
+
+  const T* xb = x + ((size_t)b * P + row0) * C;
+  if (live) {
+    for (int r = t.lane; r < rows; r += t.lanes)
+      copy_pack<T, VEC>(tile + (size_t)r * group + t.col * VEC, xb + (size_t)r * C + c);
+  }
+  copies_done();
+  __syncthreads();
+
+  // block sum, then the sum of squares about the block's mean
+  float acc[VEC] = {};
+  if (live) {
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float v[VEC];
+      load_f32<T, VEC>(tile + (size_t)r * group + t.col * VEC, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  float local_mean[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) local_mean[i] = rows > 0 ? red[t.col * VEC + i] / rows : 0.f;
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part[t.col * VEC + i] = red[t.col * VEC + i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (live) {
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float v[VEC];
+      load_f32<T, VEC>(tile + (size_t)r * group + t.col * VEC, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = v[i] - local_mean[i];
+        acc[i] += d * d;
+      }
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part[group + t.col * VEC + i] = red[t.col * VEC + i];
+  }
+  cluster.sync();  // every block's partials are written and visible
+
+  // one thread per channel merges the cluster's partials in rank order:
+  // mean from the sums, then M2 = sum_k (M2_k + n_k (mean_k - mean)^2)
+  const int j = threadIdx.x;
+  if (j < group && c0 + j < C) {
+    float total = 0.f, m2 = 0.f;
+    for (int k = 0; k < parts; ++k) total += cluster.map_shared_rank(part, k)[j];
+    const float mean = total / P;
+    for (int k = 0; k < parts; ++k) {
+      const int nk = part_rows(P, per, k);
+      if (nk == 0) continue;
+      const float* pk = cluster.map_shared_rank(part, k);
+      const float d = pk[j] / nk - mean;
+      m2 += pk[group + j] + nk * d * d;
+    }
+    const float rstd = rsqrtf(m2 / P + eps);
+    merged[j] = mean;
+    merged[group + j] = rstd * (load_param(scale, scale_dtype, b * scale_stride + c0 + j) + 1.f);
+    merged[2 * group + j] = load_param(bias, bias_dtype, b * bias_stride + c0 + j);
+    if (rank == 0) {
+      stats[(size_t)b * 2 * C + c0 + j] = mean;
+      stats[(size_t)b * 2 * C + C + c0 + j] = rstd;
+    }
+  }
+  cluster_arrive();  // done reading the other blocks' shared memory
+  __syncthreads();
+  float mean[VEC], gain[VEC], shift[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = merged[t.col * VEC + i];
+    gain[i] = merged[group + t.col * VEC + i];
+    shift[i] = merged[2 * group + t.col * VEC + i];
+  }
+
+  if (live) {
+    T* ob = out + ((size_t)b * P + row0) * C;
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float v[VEC];
+      load_f32<T, VEC>(tile + (size_t)r * group + t.col * VEC, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = (v[i] - mean[i]) * gain[i] + shift[i];
+      store_from_f32<T, VEC>(ob + (size_t)r * C + c, v);
+    }
+  }
+  cluster_wait();
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
+                  const float* __restrict__ stats, const void* __restrict__ scale,
+                  T* __restrict__ dx, void* __restrict__ dscale, void* __restrict__ dbias, int P,
+                  int C, int group, int parts, long long scale_stride, int scale_dtype,
+                  int dscale_dtype, int dbias_dtype) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c0 = (blockIdx.x / parts) * group;
+  const int b = blockIdx.y;
+  const int per = (P + parts - 1) / parts;
+  const int row0 = rank * per;
+  const int rows = part_rows(P, per, rank);
+  const Layout t(group, VEC);
+  const size_t tile_bytes = align16((size_t)per * group * sizeof(T));
+  T* xt = reinterpret_cast<T*>(smem);
+  T* gt = reinterpret_cast<T*>(smem + tile_bytes);
+  float* red = reinterpret_cast<float*>(smem + 2 * tile_bytes);
+  float* part = red + t.lanes * group;  // (sum g, sum g * xhat) per channel
+  float* merged = part + 2 * group;     // (k1, a, bcoef) per channel, this block's copy
+  const int c = c0 + t.col * VEC;
+  const bool live = t.active && c < C;
+
+  const size_t base = ((size_t)b * P + row0) * C;
+  float mean[VEC] = {}, rstd[VEC] = {}, sg[VEC] = {}, sgx[VEC] = {};
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean[i] = stats[(size_t)b * 2 * C + c + i];
+      rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
+    }
+  }
+  // copy in kStages stages of a multiple of lanes rows, summing each stage
+  // as it lands: a thread reads back only what it copied itself
+  const int stage_rows = ((rows + kStages - 1) / kStages + t.lanes - 1) / t.lanes * t.lanes;
+  for (int st = 0; st < kStages; ++st) {
+    if (live) {
+      const int end = min(rows, (st + 1) * stage_rows);
+      for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+        const size_t s = (size_t)r * group + t.col * VEC, gidx = base + (size_t)r * C + c;
+        copy_pack<T, VEC>(xt + s, x + gidx);
+        copy_pack<T, VEC>(gt + s, g + gidx);
+      }
+    }
+    commit_stage();
+  }
+  for (int st = 0; st < kStages; ++st) {
+    wait_stage(st);
+    if (!live) continue;
+    const int end = min(rows, (st + 1) * stage_rows);
+    for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+      float xv[VEC], gv[VEC];
+      load_f32<T, VEC>(xt + (size_t)r * group + t.col * VEC, xv);
+      load_f32<T, VEC>(gt + (size_t)r * group + t.col * VEC, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        sg[i] += gv[i];
+        sgx[i] += gv[i] * ((xv[i] - mean[i]) * rstd[i]);
+      }
+    }
+  }
+  lane_sum<VEC>(t, group, red, sg);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part[t.col * VEC + i] = red[t.col * VEC + i];
+  }
+  __syncthreads();
+  lane_sum<VEC>(t, group, red, sgx);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part[group + t.col * VEC + i] = red[t.col * VEC + i];
+  }
+  cluster.sync();
+
+  // one thread per channel sums the cluster's partials in rank order
+  const int j = threadIdx.x;
+  if (j < group && c0 + j < C) {
+    float db = 0.f, ds = 0.f;
+    for (int k = 0; k < parts; ++k) {
+      const float* pk = cluster.map_shared_rank(part, k);
+      db += pk[j];
+      ds += pk[group + j];
+    }
+    const float rstd_j = stats[(size_t)b * 2 * C + C + c0 + j];
+    merged[j] = rstd_j * (load_param(scale, scale_dtype, b * scale_stride + c0 + j) + 1.f);
+    merged[group + j] = db / P;
+    merged[2 * group + j] = ds / P;
+    if (rank == 0) {
+      store_param(dbias, dbias_dtype, (size_t)b * C + c0 + j, db);
+      store_param(dscale, dscale_dtype, (size_t)b * C + c0 + j, ds);
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+  float k1[VEC], a[VEC], bcoef[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    k1[i] = merged[t.col * VEC + i];
+    a[i] = merged[group + t.col * VEC + i];
+    bcoef[i] = merged[2 * group + t.col * VEC + i];
+  }
+
+  if (live) {
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float xv[VEC], gv[VEC];
+      load_f32<T, VEC>(xt + (size_t)r * group + t.col * VEC, xv);
+      load_f32<T, VEC>(gt + (size_t)r * group + t.col * VEC, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        gv[i] = k1[i] * (gv[i] - a[i] - (xv[i] - mean[i]) * rstd[i] * bcoef[i]);
+      store_from_f32<T, VEC>(dx + base + (size_t)r * C + c, gv);
+    }
+  }
+  cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
+// Route 2: two passes.  grid (groups, chunks, B); partial (B, chunks, 2, C)
+// float32.  Shared memory: red (lanes * group floats).
+// ---------------------------------------------------------------------------
+
+// Forward partials: per chunk and channel, (sum, M2 about the chunk mean).
+// Each thread sums x - s and (x - s)^2 with s its own first value, then
+// turns them into (sum, M2) once; blocks merge threads as the cluster
+// kernel merges blocks.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_fwd_partials(const T* __restrict__ x, float* __restrict__ partial, int P, int C, int group,
+                   int chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const Layout t(group, VEC);
+  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
+  const int c = blockIdx.x * group + t.col * VEC;
+  const bool live = t.active && c < C;
+  const int row0 = chunk * chunk_rows;
+  const int rows = part_rows(P, chunk_rows, chunk);
+  const T* xb = x + ((size_t)b * P + row0) * C;
+
+  float shift[VEC] = {}, s1[VEC] = {}, s2[VEC] = {};
+  int n = 0;
+  if (live && t.lane < rows) load_f32<T, VEC>(xb + (size_t)t.lane * C + c, shift);
+  if (live) {
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float v[VEC];
+      load_f32<T, VEC>(xb + (size_t)r * C + c, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = v[i] - shift[i];
+        s1[i] += d;
+        s2[i] += d * d;
+      }
+      ++n;
+    }
+  }
+  // the thread's (sum, M2): sum = n s + s1, M2 = s2 - s1^2 / n
+  float sum[VEC], m2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    sum[i] = n * shift[i] + s1[i];
+    m2[i] = n > 0 ? s2[i] - s1[i] * s1[i] / n : 0.f;
+  }
+  lane_sum<VEC>(t, group, red, sum);
+  float mean[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mean[i] = rows > 0 ? red[t.col * VEC + i] / rows : 0.f;
+  float* out = partial + ((size_t)b * chunks + chunk) * 2 * C;
+  if (live && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[c + i] = red[t.col * VEC + i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float d = n > 0 ? sum[i] / n - mean[i] : 0.f;
+    m2[i] += n * d * d;
+  }
+  lane_sum<VEC>(t, group, red, m2);
+  if (live && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[C + c + i] = red[t.col * VEC + i];
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_fwd_apply(const T* __restrict__ x, const float* __restrict__ partial,
+                const void* __restrict__ scale, const void* __restrict__ bias,
+                T* __restrict__ out, float* __restrict__ stats, int P, int C, int group,
+                int chunk_rows, long long scale_stride, long long bias_stride, int scale_dtype,
+                int bias_dtype, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const Layout t(group, VEC);
+  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
+  const int c = blockIdx.x * group + t.col * VEC;
+  const bool live = t.active && c < C;
+  const float* pb = partial + (size_t)b * chunks * 2 * C;
+
+  // merge the chunks in a fixed order: lane l takes chunks l, l + lanes, ...
+  float acc[VEC] = {};
+  if (live) {
+    for (int k = t.lane; k < chunks; k += t.lanes) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + c + i];
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  float mean[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mean[i] = red[t.col * VEC + i] / P;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (live) {
+    for (int k = t.lane; k < chunks; k += t.lanes) {
+      const int nk = part_rows(P, chunk_rows, k);
+      if (nk == 0) continue;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = pb[(size_t)k * 2 * C + c + i] / nk - mean[i];
+        acc[i] += pb[(size_t)k * 2 * C + C + c + i] + nk * d * d;
+      }
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  if (!live) return;
+  float gain[VEC], shift[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float rstd = rsqrtf(red[t.col * VEC + i] / P + eps);
+    gain[i] = rstd * (load_param(scale, scale_dtype, b * scale_stride + c + i) + 1.f);
+    shift[i] = load_param(bias, bias_dtype, b * bias_stride + c + i);
+    if (chunk == 0 && t.lane == 0) {
+      stats[(size_t)b * 2 * C + c + i] = mean[i];
+      stats[(size_t)b * 2 * C + C + c + i] = rstd;
+    }
+  }
+  const int rows = part_rows(P, chunk_rows, chunk);
+  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
+  for (int r = t.lane; r < rows; r += t.lanes) {
+    float v[VEC];
+    load_f32<T, VEC>(x + base + (size_t)r * C + c, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = (v[i] - mean[i]) * gain[i] + shift[i];
+    store_from_f32<T, VEC>(out + base + (size_t)r * C + c, v);
+  }
+}
+
+// Backward partials: per chunk and channel, (sum g, sum g * xhat).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_bwd_partials(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ stats, float* __restrict__ partial, int P, int C,
+                   int group, int chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const Layout t(group, VEC);
+  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
+  const int c = blockIdx.x * group + t.col * VEC;
+  const bool live = t.active && c < C;
+  const int rows = part_rows(P, chunk_rows, chunk);
+  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
+
+  float sg[VEC] = {}, sgx[VEC] = {};
+  if (live) {
+    float mean[VEC], rstd[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean[i] = stats[(size_t)b * 2 * C + c + i];
+      rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
+    }
+    for (int r = t.lane; r < rows; r += t.lanes) {
+      float xv[VEC], gv[VEC];
+      load_f32<T, VEC>(x + base + (size_t)r * C + c, xv);
+      load_f32<T, VEC>(g + base + (size_t)r * C + c, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        sg[i] += gv[i];
+        sgx[i] += gv[i] * ((xv[i] - mean[i]) * rstd[i]);
+      }
+    }
+  }
+  float* out = partial + ((size_t)b * chunks + chunk) * 2 * C;
+  lane_sum<VEC>(t, group, red, sg);
+  if (live && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[c + i] = red[t.col * VEC + i];
+  }
+  __syncthreads();
+  lane_sum<VEC>(t, group, red, sgx);
+  if (live && t.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[C + c + i] = red[t.col * VEC + i];
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adain_bwd_apply(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ stats,
+                const float* __restrict__ partial, const void* __restrict__ scale,
+                T* __restrict__ dx, void* __restrict__ dscale, void* __restrict__ dbias, int P,
+                int C, int group, int chunk_rows, long long scale_stride, int scale_dtype,
+                int dscale_dtype, int dbias_dtype) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const Layout t(group, VEC);
+  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
+  const int c = blockIdx.x * group + t.col * VEC;
+  const bool live = t.active && c < C;
+  const float* pb = partial + (size_t)b * chunks * 2 * C;
+
+  float acc[VEC] = {};
+  if (live) {
+    for (int k = t.lane; k < chunks; k += t.lanes) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + c + i];
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  float db[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) db[i] = red[t.col * VEC + i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (live) {
+    for (int k = t.lane; k < chunks; k += t.lanes) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + C + c + i];
+    }
+  }
+  lane_sum<VEC>(t, group, red, acc);
+  if (!live) return;
+  float mean[VEC], rstd[VEC], k1[VEC], a[VEC], bcoef[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float ds = red[t.col * VEC + i];
+    mean[i] = stats[(size_t)b * 2 * C + c + i];
+    rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
+    k1[i] = rstd[i] * (load_param(scale, scale_dtype, b * scale_stride + c + i) + 1.f);
+    a[i] = db[i] / P;
+    bcoef[i] = ds / P;
+    if (chunk == 0 && t.lane == 0) {
+      store_param(dbias, dbias_dtype, (size_t)b * C + c + i, db[i]);
+      store_param(dscale, dscale_dtype, (size_t)b * C + c + i, ds);
+    }
+  }
+  const int rows = part_rows(P, chunk_rows, chunk);
+  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
+  for (int r = t.lane; r < rows; r += t.lanes) {
+    float xv[VEC], gv[VEC];
+    load_f32<T, VEC>(x + base + (size_t)r * C + c, xv);
+    load_f32<T, VEC>(g + base + (size_t)r * C + c, gv);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      gv[i] = k1[i] * (gv[i] - a[i] - (xv[i] - mean[i]) * rstd[i] * bcoef[i]);
+    store_from_f32<T, VEC>(dx + base + (size_t)r * C + c, gv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+enum Route : int { kOnePass = 0, kTwoPass = 1 };
+
+// Dynamic shared memory of a launch (ops/adain_cuda.py _shared_bytes repeats it).
+size_t shared_bytes(int route, int tensors, int P, int group, int vec, int parts, int elem) {
+  const size_t red = (size_t)lanes_for(group, vec) * group * sizeof(float);
+  if (route == kTwoPass) return red;
+  const int per = (P + parts - 1) / parts;
+  return tensors * align16((size_t)per * group * elem) + red + 5 * group * sizeof(float);
+}
+
+// Opt in once per device to the largest dynamic shared memory and to
+// 16-block clusters for a kernel (one flag array per kernel instantiation).
+template <auto kernel>
+cudaError_t prepare() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <auto kernel, typename... Args>
+cudaError_t launch_cluster(dim3 grid, int cluster, size_t smem, cudaStream_t s, Args... args) {
+  cudaError_t err = prepare<kernel>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+struct Shape {
+  int B, P, C, route, group, vec, parts;
+  bool valid(int elem) const {
+    if (B < 1 || P < 1 || C < 1 || group < 1 || parts < 1 || B > 65535) return false;
+    if (vec != 1 && vec != 16 / elem) return false;
+    if (group % vec || C % vec) return false;
+    if (route == kOnePass) return parts <= 16;
+    return route == kTwoPass && parts <= P && parts <= 65535;
+  }
+  int groups() const { return (C + group - 1) / group; }
+  int chunk_rows() const { return (P + parts - 1) / parts; }
+};
+
+template <typename T, int VEC>
+cudaError_t run_forward(const Shape& sh, const void* x, const void* scale, const void* bias, void* out,
+                    float* stats, float* partial, long long scale_stride, long long bias_stride,
+                    int scale_dtype, int bias_dtype, float eps, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  const size_t smem = shared_bytes(sh.route, 1, sh.P, sh.group, VEC, sh.parts, sizeof(T));
+  if (sh.route == kOnePass) {
+    return launch_cluster<adain_fwd_cluster<T, VEC>>(
+        dim3(sh.parts * sh.groups(), sh.B), sh.parts, smem, s, xt, scale, bias, ot, stats, sh.P,
+        sh.C, sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
+  }
+  const dim3 grid(sh.groups(), sh.parts, sh.B);
+  adain_fwd_partials<T, VEC><<<grid, kThreads, smem, s>>>(xt, partial, sh.P, sh.C, sh.group,
+                                                          sh.chunk_rows());
+  adain_fwd_apply<T, VEC><<<grid, kThreads, smem, s>>>(
+      xt, partial, scale, bias, ot, stats, sh.P, sh.C, sh.group, sh.chunk_rows(), scale_stride,
+      bias_stride, scale_dtype, bias_dtype, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t run_backward(const Shape& sh, const void* x, const void* g, const float* stats,
+                     const void* scale, void* dx, void* dscale, void* dbias, float* partial,
+                     long long scale_stride, int scale_dtype, int dscale_dtype, int dbias_dtype,
+                     cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  const size_t smem = shared_bytes(sh.route, 2, sh.P, sh.group, VEC, sh.parts, sizeof(T));
+  if (sh.route == kOnePass) {
+    return launch_cluster<adain_bwd_cluster<T, VEC>>(
+        dim3(sh.parts * sh.groups(), sh.B), sh.parts, smem, s, xt, gt, stats, scale, dxt, dscale,
+        dbias, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype,
+        dbias_dtype);
+  }
+  const dim3 grid(sh.groups(), sh.parts, sh.B);
+  adain_bwd_partials<T, VEC><<<grid, kThreads, smem, s>>>(xt, gt, stats, partial, sh.P, sh.C,
+                                                          sh.group, sh.chunk_rows());
+  adain_bwd_apply<T, VEC><<<grid, kThreads, smem, s>>>(
+      xt, gt, stats, partial, scale, dxt, dscale, dbias, sh.P, sh.C, sh.group, sh.chunk_rows(),
+      scale_stride, scale_dtype, dscale_dtype, dbias_dtype);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x/out: (B, P, C) contiguous, float32 or bfloat16 (x_dtype code);
-// scale/bias: (B, C) float32 or bfloat16 with unit channel stride and the
-// given row strides; partial: (B, chunks, 2, C) float32 scratch; chunks >= 1
-// and at most P.  Returns cudaGetLastError() after the launches.
+// The card's SM count and opt-in shared memory per block.
+extern "C" int adain_device_limits(int device, int* sms, int* smem_per_block) {
+  cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return (int)err;
+}
+
+// x/out: (B, P, C) contiguous, 16-byte aligned when vec > 1, float32 or
+// bfloat16 (x_dtype code); scale/bias: (B, C) float32 or bfloat16 with unit
+// channel stride and the given row strides; stats: (B, 2, C) float32
+// (mean, rstd), written.  route 0: one pass, `parts` blocks per cluster
+// (<= 16); route 1: two passes over `parts` chunks of positions, partial
+// (B, parts, 2, C) float32 scratch.  Returns the launch's cudaError_t.
 extern "C" int adain_forward(const void* x, const void* scale, const void* bias, void* out,
-                             float* partial, int B, int P, int C, int chunks,
-                             long long scale_stride, long long bias_stride, int x_dtype,
-                             int scale_dtype, int bias_dtype, float eps, void* stream) {
+                             float* stats, float* partial, int B, int P, int C, int route,
+                             int group, int vec, int parts, long long scale_stride,
+                             long long bias_stride, int x_dtype, int scale_dtype, int bias_dtype,
+                             float eps, void* stream) {
+  const Shape sh{B, P, C, route, group, vec, parts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks < 1 || chunks > P || chunks > 65535) return (int)cudaErrorInvalidValue;
-  if (x_dtype == kBFloat16) {
-    launch<__nv_bfloat16>(x, scale, bias, out, partial, B, P, C, chunks, scale_stride, bias_stride,
-                          scale_dtype, bias_dtype, eps, s);
-  } else if (x_dtype == kFloat32) {
-    launch<float>(x, scale, bias, out, partial, B, P, C, chunks, scale_stride, bias_stride,
-                  scale_dtype, bias_dtype, eps, s);
+  cudaError_t err;
+  if (x_dtype == kBFloat16 && sh.valid(2)) {
+    err = vec == 1 ? run_forward<__nv_bfloat16, 1>(sh, x, scale, bias, out, stats, partial,
+                                               scale_stride, bias_stride, scale_dtype, bias_dtype,
+                                               eps, s)
+                   : run_forward<__nv_bfloat16, 8>(sh, x, scale, bias, out, stats, partial,
+                                               scale_stride, bias_stride, scale_dtype, bias_dtype,
+                                               eps, s);
+  } else if (x_dtype == kFloat32 && sh.valid(4)) {
+    err = vec == 1 ? run_forward<float, 1>(sh, x, scale, bias, out, stats, partial, scale_stride,
+                                       bias_stride, scale_dtype, bias_dtype, eps, s)
+                   : run_forward<float, 4>(sh, x, scale, bias, out, stats, partial, scale_stride,
+                                       bias_stride, scale_dtype, bias_dtype, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// x/g/dx: (B, P, C) contiguous in x's dtype; stats: the forward's (B, 2, C)
+// float32; scale: (B, C), unit channel stride, row stride given; dscale,
+// dbias: (B, C) contiguous, written in their dtype codes.  route, parts and
+// partial as for adain_forward.
+extern "C" int adain_backward(const void* x, const void* g, const float* stats, const void* scale,
+                              void* dx, void* dscale, void* dbias, float* partial, int B, int P,
+                              int C, int route, int group, int vec, int parts,
+                              long long scale_stride, int x_dtype, int scale_dtype,
+                              int dscale_dtype, int dbias_dtype, void* stream) {
+  const Shape sh{B, P, C, route, group, vec, parts};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_dtype == kBFloat16 && sh.valid(2)) {
+    err = vec == 1 ? run_backward<__nv_bfloat16, 1>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
+                                                scale_stride, scale_dtype, dscale_dtype,
+                                                dbias_dtype, s)
+                   : run_backward<__nv_bfloat16, 8>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
+                                                scale_stride, scale_dtype, dscale_dtype,
+                                                dbias_dtype, s);
+  } else if (x_dtype == kFloat32 && sh.valid(4)) {
+    err = vec == 1 ? run_backward<float, 1>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
+                                        scale_stride, scale_dtype, dscale_dtype, dbias_dtype, s)
+                   : run_backward<float, 4>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
+                                        scale_stride, scale_dtype, dscale_dtype, dbias_dtype, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from confignet_tpu_torch.core.transforms import euler_angles_to_matrix
-from confignet_tpu_torch.ops.adain_cuda import fused_adain, fused_adain_forward, fused_adain_plain
+from confignet_tpu_torch.ops.adain_cuda import (
+    adain_route, adain_two_pass_plan, device_limits, fused_adain, fused_adain_backward,
+    fused_adain_backward_plain, fused_adain_forward, fused_adain_plain, fused_adain_plain_with_stats,
+    launch_backward, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
     rotate_3d_grid_forward, rotate_3d_grid_kernel, rotate_3d_grid_kernel_train, rotate_3d_grid_plain,
     rotate_3d_grid_transpose, rotate_3d_grid_transpose_plain)
@@ -63,21 +66,92 @@ def test_rotate_kernel_matches_plain(cuda, dtype, size, channels):
     assert err <= TOL[dtype]["rotate"], err
 
 
+ADAIN_SHAPES = [(4, 8, 8, 8, 256), (4, 64, 64, 32), (2, 256, 256, 16), (3, 5, 7, 48), (2, 3, 3, 5)]
+# the six 256px sites as (B, P, C) at a small batch
+ADAIN_SITES_256 = [(3, 512, 256), (3, 4096, 128), (3, 256, 256), (3, 1024, 64), (3, 4096, 32),
+                   (3, 16384, 32)]
+
+
+def adain_inputs(shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=shape) * 3 + 1).astype(np.float32)).to(device, dtype)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+    scale = torch.from_numpy(rng.normal(size=(shape[0], shape[-1])).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(size=(shape[0], shape[-1])).astype(np.float32)).to(device, dtype)
+    return x, g, scale, bias
+
+
+def sum_error(got, want):
+    """dscale/dbias: error over max(1, max |want|)."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1.0)).item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 8, 8, 8, 256), (4, 64, 64, 32), (2, 256, 256, 16), (3, 5, 7, 48),
-                                   (2, 3, 3, 5)])
+@pytest.mark.parametrize("shape", ADAIN_SHAPES)
 def test_adain_kernel_matches_plain(cuda, dtype, shape):
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.normal(size=shape) * 3 + 1).astype(np.float32)).to(cuda, dtype)
-    scale = torch.from_numpy(rng.normal(size=(shape[0], shape[-1])).astype(np.float32)).to(cuda)
-    bias = torch.from_numpy(rng.normal(size=(shape[0], shape[-1])).astype(np.float32)).to(cuda, dtype)
+    x, _, scale, bias = adain_inputs(shape, dtype, cuda, 1)
     before = fused_adain_forward.launches
     got = fused_adain(x, scale, bias)
     torch.cuda.synchronize()
     assert fused_adain_forward.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
-    err = checked_error(got, fused_adain_plain(x, scale, bias))
+    want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
+    err = checked_error(got, want)
     assert err <= TOL[dtype]["adain"], err
+    _, stats = fused_adain_forward(x, scale, bias)
+    assert stats.dtype == torch.float32 and stats.shape == want_stats.shape
+    assert sum_error(stats, want_stats) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256)
+def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
+    """The route adain_route picks and the two-pass route forced on the same
+    shape; (2, 256, 256, 16) in float32 takes the two-pass route by itself."""
+    x, _, scale, bias = adain_inputs(shape, dtype, cuda, 5)
+    batch, channels = shape[0], shape[-1]
+    positions = x.numel() // (batch * channels)
+    smem, sms = device_limits(x.device.index)
+    picked = adain_route(batch, positions, channels, dtype, smem, sms)
+    if shape == (2, 256, 256, 16) and dtype == torch.float32:
+        assert picked.route == "two_pass"
+    if shape in ADAIN_SITES_256:
+        assert picked.route == "one_pass"
+    want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
+    for plan in (picked, adain_two_pass_plan(batch, positions, channels, dtype, sms)):
+        got, stats = launch_forward(x, scale, bias, 1e-3, plan)
+        torch.cuda.synchronize()
+        assert checked_error(got, want) <= TOL[dtype]["adain"], plan
+        assert sum_error(stats, want_stats) <= 1e-4, plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SHAPES)
+def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
+    """The backward kernel on its own route and on the forced two-pass route
+    against its plain version on the same saved statistics; two launches
+    agree bit for bit (fixed-order sums, no atomics)."""
+    x, g, scale, bias = adain_inputs(shape, dtype, cuda, 6)
+    _, stats = fused_adain_forward(x, scale, bias)
+    want = fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
+    before = fused_adain_backward.launches
+    got = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    again = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    torch.cuda.synchronize()
+    assert fused_adain_backward.launches == before + 2
+    batch, channels = shape[0], shape[-1]
+    positions = x.numel() // (batch * channels)
+    forced = launch_backward(x, g, stats, scale, bias.dtype,
+                             adain_two_pass_plan(batch, positions, channels, dtype,
+                                                 device_limits(x.device.index)[1]))
+    for name, a, b, c, d in zip(("dx", "dscale", "dbias"), got, again, want, forced):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        assert torch.equal(a, b), name
+        err = checked_error(a, c) if name == "dx" else sum_error(a, c)
+        tol = TOL[dtype]["adain"] if name == "dx" or dtype == torch.bfloat16 else 1e-4
+        assert err <= tol, (name, err)
+        err = checked_error(d, c) if name == "dx" else sum_error(d, c)
+        assert err <= tol, (name, "two_pass", err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -104,7 +178,7 @@ def test_transpose_kernel_matches_plain(cuda, dtype, batch, size, channels):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_function_backwards_match_plain_path(cuda, dtype):
     """Both autograd Functions on CUDA tensors (kernels forward; transpose
-    kernel and AdaIN torch-op backward) against the same Functions on the
+    and AdaIN backward kernels) against the same Functions on the
     CPU, where they run their plain versions."""
     rng = np.random.default_rng(4)
     grid = rng.normal(size=(4, 16, 16, 16, 32)).astype(np.float32)
@@ -125,12 +199,14 @@ def test_function_backwards_match_plain_path(cuda, dtype):
         assert torch.count_nonzero(angles_t.grad) == 0
         return [t.grad.cpu() for t in [g] + xs]
 
-    before = (rotate_3d_grid_forward.launches, rotate_3d_grid_transpose.launches,
-              fused_adain_forward.launches)
+    def launches():
+        return (rotate_3d_grid_forward.launches, rotate_3d_grid_transpose.launches,
+                fused_adain_forward.launches, fused_adain_backward.launches)
+
+    before = launches()
     got = run(cuda)
     torch.cuda.synchronize()
-    assert (rotate_3d_grid_forward.launches, rotate_3d_grid_transpose.launches,
-            fused_adain_forward.launches) == tuple(n + 1 for n in before)
+    assert launches() == tuple(n + 1 for n in before)
     want = run(torch.device("cpu"))
     for name, a, b in zip(("grid", "x", "scale", "bias"), got, want):
         assert a.dtype == b.dtype, name
@@ -155,6 +231,46 @@ def test_adain_kernel_reads_strided_bf16_params(cuda):
     assert not scale.is_contiguous()
     err = checked_error(fused_adain(x, scale, bias), fused_adain_plain(x, scale, bias))
     assert err <= TOL[torch.bfloat16]["adain"], err
+
+
+def test_adain_backward_kernel_reads_strided_bf16_scale(cuda):
+    """The backward kernel with the forward's bf16 row-view scale: dscale
+    comes back bf16 and contiguous, dbias in the bias dtype."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(3, 16, 16, 24)).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    params = torch.from_numpy(rng.normal(size=(3, 2, 24)).astype(np.float32)).to(cuda, torch.bfloat16)
+    scale, bias = params[:, 0], params[:, 1].float()
+    assert not scale.is_contiguous()
+    _, stats = fused_adain_forward(x, scale, bias)
+    got = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    want = fused_adain_backward_plain(x, g, stats, scale.contiguous(), bias.dtype)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    assert checked_error(got[0], want[0]) <= TOL[torch.bfloat16]["adain"]
+    for a, b in zip(got[1:], want[1:]):
+        assert sum_error(a, b) <= TOL[torch.bfloat16]["adain"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_kernels_take_unaligned_views(cuda, dtype):
+    """A contiguous view that starts off a 16-byte boundary goes through the
+    scalar-access kernels, forward and backward."""
+    rng = np.random.default_rng(8)
+    shape = (3, 8, 8, 32)
+    buf = torch.from_numpy(rng.normal(size=2 * np.prod(shape) + 1).astype(np.float32)).to(cuda, dtype)
+    x, g = buf[1:1 + np.prod(shape)].view(shape), buf[1 + np.prod(shape):].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale, bias = (torch.from_numpy(rng.normal(size=(3, 32)).astype(np.float32)).to(cuda)
+                   for _ in range(2))
+    out, stats = fused_adain_forward(x, scale, bias)
+    want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
+    assert checked_error(out, want) <= TOL[dtype]["adain"]
+    assert sum_error(stats, want_stats) <= 1e-4
+    got = fused_adain_backward(x, g, stats, scale, bias.dtype)
+    want = fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
+    assert checked_error(got[0], want[0]) <= TOL[dtype]["adain"]
+    for a, b in zip(got[1:], want[1:]):
+        assert sum_error(a, b) <= TOL[dtype]["adain"]
 
 
 def test_wrappers_raise_on_bad_inputs(cuda):

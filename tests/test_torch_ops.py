@@ -10,6 +10,7 @@ import torch
 
 from confignet_tpu.core import transforms as jax_transforms
 from confignet_tpu.ops import norms as jax_norms
+from confignet_tpu.ops.adain_pallas import _spatial_stats
 from confignet_tpu.ops.adain_pallas import fused_adain as jax_fused_adain
 from confignet_tpu.ops.conv3d import Conv3d as JaxConv3d
 from confignet_tpu.ops.norms import adain_modulate as jax_adain_modulate
@@ -18,7 +19,9 @@ from confignet_tpu.ops.upconv import UpConv as JaxUpConv
 from confignet_tpu_torch.core import transforms
 from confignet_tpu_torch.core.model_io import load_jax_params
 from confignet_tpu_torch.ops import norms
-from confignet_tpu_torch.ops.adain_cuda import fused_adain, fused_adain_plain
+from confignet_tpu_torch.ops.adain_cuda import (
+    adain_route, adain_two_pass_plan, fused_adain, fused_adain_backward, fused_adain_backward_plain,
+    fused_adain_plain, fused_adain_plain_with_stats)
 from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last
 from confignet_tpu_torch.ops.norms import adain_modulate
 from confignet_tpu_torch.ops.rotate_cuda import (
@@ -123,6 +126,88 @@ def test_adain_function_cotangent_dtypes():
     fused_adain(x, scale, bias).float().sum().backward()
     assert (x.grad.dtype, scale.grad.dtype, bias.grad.dtype) == (torch.bfloat16, torch.bfloat16,
                                                                   torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (2, 4, 4, 4, 8), (3, 5, 7, 6)])
+def test_adain_plain_stats_match_jax(shape):
+    """The plain forward's saved statistics (mean, rstd) against JAX's
+    _spatial_stats, and its output against the plain version's."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=shape) * 3 + 1).astype(np.float32)
+    scale, bias = (rng.normal(size=(shape[0], shape[-1])).astype(np.float32) for _ in range(2))
+    mean, var = _spatial_stats(jnp.asarray(x).reshape(shape[0], -1, shape[-1]))
+    out, stats = fused_adain_plain_with_stats(*map(torch.from_numpy, (x, scale, bias)))
+    assert stats.dtype == torch.float32 and stats.shape == (shape[0], 2, shape[-1])
+    np.testing.assert_allclose(stats[:, 0].numpy(), np.asarray(mean)[:, 0], atol=1e-6)
+    np.testing.assert_allclose(stats[:, 1].numpy(), np.asarray(jax.lax.rsqrt(var + 1e-3))[:, 0],
+                               rtol=1e-5)
+    assert torch.equal(out, fused_adain_plain(*map(torch.from_numpy, (x, scale, bias))))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (2, 4, 4, 4, 8), (3, 5, 7, 6)])
+def test_adain_backward_plain_matches_jax_vjp(shape):
+    """fused_adain_backward_plain fed the plain forward's saved statistics,
+    against jax.grad through the Pallas kernel's custom VJP (interpret
+    mode), atol/rtol 1e-4 (tests/test_pallas_interpret.py:105-123)."""
+    rng = np.random.default_rng(6)
+    x, w = ((rng.normal(size=shape) * 3 + 1).astype(np.float32) for _ in range(2))
+    scale, bias = (rng.normal(size=(shape[0], shape[-1])).astype(np.float32) for _ in range(2))
+    want = jax.grad(lambda *a: jnp.sum(jax_fused_adain(*a, 1e-3, True) * w),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (x, scale, bias)))
+    tx, ts, tb = map(torch.from_numpy, (x, scale, bias))
+    _, stats = fused_adain_plain_with_stats(tx, ts, tb)
+    got = fused_adain_backward_plain(tx, torch.from_numpy(w), stats, ts, tb.dtype)
+    wrapped = fused_adain_backward(tx, torch.from_numpy(w), stats, ts, tb.dtype)  # CPU: plain
+    assert all(torch.equal(a, b) for a, b in zip(got, wrapped))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cotangent", ["bfloat16", "float32"])
+def test_adain_backward_plain_mixed_dtypes_match_jax(cotangent):
+    """bf16 x and scale, f32 bias: each cotangent in its own primal's dtype,
+    as in JAX (tests/test_pallas_interpret.py:140-156), and within 3e-2 of
+    max(1, |value|) of JAX's, whose bf16 output cotangent (or an f32 one,
+    cast to the output's bf16 as autograd does) is the same."""
+    rng = np.random.default_rng(7)
+    shape = (2, 6, 6, 16)
+    x, w = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    scale, bias = (rng.normal(size=(2, 16)).astype(np.float32) for _ in range(2))
+    jx, js = jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, s, b: jax_fused_adain(a, s, b, 1e-3, True), jx, js, jnp.asarray(bias))
+    want = vjp(jnp.asarray(w, jnp.bfloat16))
+    tx, ts = torch.from_numpy(x).bfloat16(), torch.from_numpy(scale).bfloat16()
+    _, stats = fused_adain_plain_with_stats(tx, ts, torch.from_numpy(bias))
+    g = torch.from_numpy(w).to(getattr(torch, cotangent)).bfloat16()
+    got = fused_adain_backward_plain(tx, g, stats, ts, torch.float32)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    assert [str(t.dtype) for t in want] == ["bfloat16", "bfloat16", "float32"]
+    for a, b in zip(got, want):
+        b = np.asarray(b, np.float32)
+        err = np.abs(a.float().numpy() - b) / np.maximum(1.0, np.abs(b))
+        assert err.max() <= 3e-2, err.max()
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_route_takes_one_pass_at_256px(dtype, backward):
+    """Under an H100's 227 KB of opt-in shared memory per block and 132 SMs,
+    every 256px AdaIN site at the main path's batches takes the one-pass
+    cluster route, within the card's limits; the 512px float32 site does
+    not fit a cluster and takes two passes."""
+    sites = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
+    for batch in (12, 24, 32, 256):
+        for positions, channels in sites:
+            plan = adain_route(batch, positions, channels, dtype, 232448, 132, backward)
+            assert plan.route == "one_pass", (batch, positions, channels, plan)
+            assert plan.parts in (1, 2, 4, 8, 16) and plan.group % plan.vec == 0, plan
+            assert plan.shared_bytes <= (232448 // 2 if plan.parts > 8 else 232448), plan
+            assert plan.vec == 16 // torch.empty((), dtype=dtype).element_size()
+    two = adain_route(256, 65536, 16, torch.float32, 232448, 132, backward)
+    assert two.route == "two_pass" and 1 <= two.parts <= 65536
+    assert two == adain_two_pass_plan(256, 65536, 16, torch.float32, 132)
+    odd = adain_route(2, 9, 5, dtype, 232448, 132, backward)
+    assert (odd.route, odd.group, odd.vec, odd.parts) == ("one_pass", 5, 1, 1)
 
 
 def test_adain_partial_axes_stays_plain():
