@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (confignet_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile profile.txt]
+    python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; turns TF32 off.
@@ -13,9 +14,12 @@
    beside the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s, whichever is larger).  Each time is
    taken twice: ``ms`` over back-to-back launches (which the host may pace)
-   and ``device_ms`` by replaying a CUDA graph of 10 launches.  AdaIN runs
-   on the route adain_route picks (printed per site) and, for comparison,
-   on the two-pass route, timed in turns.
+   and ``device_ms`` by replaying a CUDA graph of 10 launches (the library
+   call too, as ``library_device_ms``).  AdaIN runs on the route
+   adain_route picks (printed per site) and, for comparison, on the
+   two-pass route; the rotation on the slab route rotate_plan picks
+   (printed with its plan) and on route v1, the first kernel; each pair
+   timed in turns.
 4. Serves requests at full width (256px, bf16, 145-dim latents, weights
    from seed 0) through ConfigNetServer(chunk=32): encode 40 photos,
    re-render them with a spliced attribute, generate 256 latents.  The
@@ -25,12 +29,14 @@
    versions on 8 photos; the renders must agree to a mean abs uint8
    difference below 1.0.
 6. Holds the rotation's transpose kernel (the backward of the resample) against
-   its plain version at the train step's shapes (B=12, 24; float32 atol 2e-4,
-   bf16 3e-2 relative), twice, and times it beside the input gradient of
-   F.grid_sample.  Holds the AdaIN backward kernel against its plain version
-   (torch ops) at the six 256px sites, B=12 and 24, float32 and bf16, on its
-   own route and the two-pass route; two launches must agree bit for bit;
-   times it beside the autograd backward of F.group_norm + affine.
+   its plain version at B=12, 24 (the train step's), 32 and 256 (float32
+   atol 2e-4, bf16 3e-2 relative) on the owner-computes route, whose two
+   launches must agree bit for bit, and on route v1, timed in turns beside
+   the input gradient of F.grid_sample.  Holds the AdaIN backward kernel
+   against its plain version (torch ops) at the six 256px sites, B=12 and
+   24, float32 and bf16, on its own route and the two-pass route; two
+   launches must agree bit for bit; times it beside the autograd backward
+   of F.group_norm + affine.
 7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
    layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
    fake dataset of 64 images: float32, one warm-up and 3 timed steps, each with
@@ -71,8 +77,9 @@ from confignet_tpu_torch.ops.adain_cuda import (
     adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
     fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
-    rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
-    rotate_3d_grid_transpose_plain)
+    device_limits as rotate_device_limits, forward_shared_bytes, launch_rotate_forward,
+    launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
+    rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan, transpose_shared_bytes)
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.first_stage import PLAYER_TREES, ConfigNetFirstStage
 from confignet_tpu_torch.training.second_stage import ConfigNet
@@ -194,42 +201,77 @@ def poses(batch: int, rng):
     return rot.astype(np.float32)
 
 
-def rotate_phase(batch: int, dtype, records: list):
+def rotation_inputs(batch: int, dtype, seed: int):
+    """A random (B, 16, 16, 16, 128) volume and the reference poses."""
     size, channels = 16, 128
-    gen = torch.Generator(device="cuda").manual_seed(batch)
-    grid = torch.randn((batch, size, size, size, channels), generator=gen, device="cuda").to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    volume = torch.randn((batch, size, size, size, channels), generator=gen, device="cuda").to(dtype)
     transform = euler_angles_to_matrix(
         torch.from_numpy(poses(batch, np.random.default_rng(batch)))).cuda()
+    return volume, transform
+
+
+def grid_sample_grid(volume, transform):
+    """grid_sample's sampling grid for the resample: 5-D trilinear,
+    align_corners, border padding, the volume's (x, y, z) axes as
+    grid_sample's (D, H, W)."""
+    batch, size = volume.shape[0], volume.shape[1]
+    floor, _, frac = _source_coords(volume, transform)
+    src = (floor.float() + frac) / (size - 1) * 2 - 1  # (B, 3, P), clamped
+    return src.flip(1).transpose(1, 2).reshape(batch, size, size, size, 3).to(volume.dtype)
+
+
+def rotate_plans(volume, transpose: bool = False):
+    batch, size, channels = volume.shape[0], volume.shape[1], volume.shape[4]
+    plan = rotate_plan(batch, size, channels, volume.dtype,
+                       *rotate_device_limits(volume.device.index), transpose=transpose)
+    return plan, rotate_v1_plan(batch, size, channels)
+
+
+def rotate_phase(batch: int, dtype, records: list):
+    """The forward kernel on the route rotate_plan picks and on route v1,
+    each against the plain version, timed beside the plain version and
+    F.grid_sample: ``ms`` by back-to-back launches, ``device_ms`` by
+    CUDA-graph replay (the two routes in turns)."""
+    grid, transform = rotation_inputs(batch, dtype, batch)
+    plan, v1 = rotate_plans(grid)
     got = rotate_3d_grid_forward(grid, transform)
+    got_v1 = launch_rotate_forward(grid, transform, v1)
     want = rotate_3d_grid_plain(grid, transform)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
+    _, checked_v1 = compare(got_v1, want)
 
-    # library yardstick: 5-D trilinear grid_sample, align_corners, border
-    # padding, the grid's (x, y, z) axes as grid_sample's (D, H, W)
-    floor, _, frac = _source_coords(grid, transform)
-    src = (floor.float() + frac) / (size - 1) * 2 - 1  # (B, 3, P), clamped
-    sample_grid = src.flip(1).transpose(1, 2).reshape(batch, size, size, size, 3).to(dtype)
+    sample_grid = grid_sample_grid(grid, transform)
     volume = grid.permute(0, 4, 1, 2, 3)
 
     def library():
         return F.grid_sample(volume, sample_grid, mode="bilinear", padding_mode="border",
                              align_corners=True)
 
+    def kernel():
+        return rotate_3d_grid_forward(grid, transform)
+
+    def old_route():
+        return launch_rotate_forward(grid, transform, v1)
+
     lib_err = (library().permute(0, 2, 3, 4, 1).float() - want.float()).abs().max().item()
     elem = grid.element_size()
     n_bytes = 2 * grid.numel() * elem + transform.numel() * 4
     bound_ms, bound_by = bound(n_bytes, ROTATE_FLOPS_PER_ELEMENT * grid.numel())
+    kernel_device, v1_device = in_turns(kernel, old_route)
     rec = dict(kernel="rotate_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(grid.shape), max_abs_err=err, checked_err=checked,
-               library_max_abs_err=lib_err,
-               ms=time_ms(lambda: rotate_3d_grid_forward(grid, transform)),
-               device_ms=device_ms(lambda: rotate_3d_grid_forward(grid, transform)),
+               shape=list(grid.shape), route=plan.route, plan=plan._asdict(), max_abs_err=err,
+               checked_err=checked, v1_checked_err=checked_v1, library_max_abs_err=lib_err,
+               ms=time_ms(kernel), device_ms=kernel_device,
+               v1_ms=time_ms(old_route), v1_device_ms=v1_device,
                plain_ms=time_ms(lambda: rotate_3d_grid_plain(grid, transform)),
-               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
+               library_ms=time_ms(library), library_device_ms=device_ms(library),
+               bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
-    if not checked <= TOL[rec["dtype"]]["rotate"]:
+    tol = TOL[rec["dtype"]]["rotate"]
+    if not (checked <= tol and checked_v1 <= tol):
         raise AssertionError(f"rotate kernel disagrees with its plain version: {rec}")
 
 
@@ -292,52 +334,101 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
 
 
 def transpose_phase(batch: int, dtype, records: list):
-    """The transpose kernel (gradient of the resample w.r.t. the grid) against
-    its plain version, launched twice (float atomics: the two agree only
-    within the tolerance)."""
-    size, channels = 16, 128
-    gen = torch.Generator(device="cuda").manual_seed(1000 + batch)
-    ct = torch.randn((batch, size, size, size, channels), generator=gen, device="cuda").to(dtype)
-    transform = euler_angles_to_matrix(
-        torch.from_numpy(poses(batch, np.random.default_rng(batch)))).cuda()
+    """The transpose kernel (gradient of the resample w.r.t. the grid) on the
+    route rotate_plan picks, launched twice (the two must be equal bit for
+    bit: fixed-order sums), and on route v1 (float atomics), each against
+    the plain version; timed beside the plain version and the input gradient
+    of F.grid_sample (the two routes' device times in turns)."""
+    ct, transform = rotation_inputs(batch, dtype, 1000 + batch)
+    plan, v1 = rotate_plans(ct, transpose=True)
     got = rotate_3d_grid_transpose(ct, transform)
     again = rotate_3d_grid_transpose(ct, transform)
+    got_v1 = launch_rotate_transpose(ct, transform, v1)
     want = rotate_3d_grid_transpose_plain(ct, transform)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
-    _, repeat = compare(again, got)
+    _, checked_v1 = compare(got_v1, want)
+    repeat_equal = torch.equal(got, again)
 
     # library yardstick: the input gradient of the forward phase's 5-D
-    # grid_sample, only the volume requiring grad (backward timed alone)
-    floor, _, frac = _source_coords(ct, transform)
-    src = (floor.float() + frac) / (size - 1) * 2 - 1
-    sample_grid = src.flip(1).transpose(1, 2).reshape(batch, size, size, size, 3).to(dtype)
-    volume = torch.zeros_like(ct).permute(0, 4, 1, 2, 3).requires_grad_(True)
-    out = F.grid_sample(volume, sample_grid, mode="bilinear", padding_mode="border",
-                        align_corners=True)
-    ct_cf = ct.permute(0, 4, 1, 2, 3)
+    # grid_sample, only the volume requiring grad (backward timed alone).
+    # The forward runs on a side stream: autograd runs the backward on the
+    # forward's stream, which the graph capture must then use too.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample_grid = grid_sample_grid(ct, transform)
+        volume = torch.zeros_like(ct).permute(0, 4, 1, 2, 3).requires_grad_(True)
+        out = F.grid_sample(volume, sample_grid, mode="bilinear", padding_mode="border",
+                            align_corners=True)
+        ct_cf = ct.permute(0, 4, 1, 2, 3)
+    torch.cuda.current_stream().wait_stream(side)
 
     def library():
         return torch.autograd.grad(out, volume, ct_cf, retain_graph=True)[0]
+
+    def kernel():
+        return rotate_3d_grid_transpose(ct, transform)
+
+    def old_route():
+        return launch_rotate_transpose(ct, transform, v1)
 
     lib_err = (library().permute(0, 2, 3, 4, 1).float() - want.float()).abs().max().item()
     elem = ct.element_size()
     n_bytes = 2 * ct.numel() * elem + transform.numel() * 4
     bound_ms, bound_by = bound(n_bytes, TRANSPOSE_FLOPS_PER_ELEMENT * ct.numel())
-    scratch = 2 * ct.numel() * 4 if dtype == torch.bfloat16 else 0  # f32 scratch written, read
+    kernel_device, v1_device = in_turns(kernel, old_route)
     rec = dict(kernel="rotate_transpose_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(ct.shape), max_abs_err=err, checked_err=checked, repeat_err=repeat,
-               library_max_abs_err=lib_err,
-               ms=time_ms(lambda: rotate_3d_grid_transpose(ct, transform)),
-               device_ms=device_ms(lambda: rotate_3d_grid_transpose(ct, transform)),
+               shape=list(ct.shape), route=plan.route, plan=plan._asdict(), max_abs_err=err,
+               checked_err=checked, v1_checked_err=checked_v1, repeat_equal=repeat_equal,
+               library_max_abs_err=lib_err, ms=time_ms(kernel), device_ms=kernel_device,
+               v1_ms=time_ms(old_route), v1_device_ms=v1_device,
                plain_ms=time_ms(lambda: rotate_3d_grid_transpose_plain(ct, transform)),
-               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
-               bound_with_scratch_ms=bound(n_bytes + scratch, 0)[0])
+               library_ms=time_ms(library), library_device_ms=device_ms(library, stream=side),
+               bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
     tol = TOL[rec["dtype"]]["transpose"]
-    if not (checked <= tol and repeat <= tol):
+    if not (repeat_equal and checked <= tol and checked_v1 <= tol):
         raise AssertionError(f"transpose kernel disagrees with its plain version: {rec}")
+
+
+def rotate_sweep(path: str) -> None:
+    """Device time of the slab forward and the owner-computes transpose at
+    the main path's shapes for each tile that fits, beside route v1, each
+    checked against the plain version; one JSON line per tile, also written
+    to ``path``.  The tiles rotate_plan prefers come from this sweep."""
+    smem, _ = rotate_device_limits(0)
+    rows = []
+    for transpose, batch, dtype in ((False, 24, torch.float32), (False, 12, torch.float32),
+                                    (False, 32, torch.bfloat16), (False, 256, torch.bfloat16),
+                                    (True, 12, torch.float32), (True, 24, torch.float32),
+                                    (True, 12, torch.bfloat16), (True, 32, torch.bfloat16)):
+        volume, transform = rotation_inputs(batch, dtype, 7)
+        plan, v1 = rotate_plans(volume, transpose)
+        elem = volume.element_size()
+        if transpose:
+            tiles = [plan._replace(group=g, shared_bytes=transpose_shared_bytes(16, g))
+                     for g in (32, 64, 128)]
+            run, plain = launch_rotate_transpose, rotate_3d_grid_transpose_plain
+        else:
+            tiles = [plan._replace(window=w, group=r // elem,
+                                   shared_bytes=forward_shared_bytes(16, w, r // elem, elem))
+                     for w in (1, 2, 4, 8) for r in (32, 64, 128)]
+            run, plain = launch_rotate_forward, rotate_3d_grid_plain
+        want = plain(volume, transform)
+        for tile in [v1] + [t for t in tiles if t.shared_bytes <= smem]:
+            got = run(volume, transform, tile)
+            checked = compare(got, want)[1]
+            ms = device_ms(lambda: run(volume, transform, tile))
+            row = dict(transpose=transpose, batch=batch, dtype=str(dtype).replace("torch.", ""),
+                       route=tile.route, window=tile.window, group=tile.group,
+                       shared_bytes=tile.shared_bytes, device_ms=ms, checked_err=checked,
+                       picked=tile == plan)
+            rows.append(row)
+            print("sweep " + json.dumps(row), flush=True)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(rows, indent=1))
 
 
 def adain_backward_phase(batch: int, positions: int, channels: int, dtype, records: list):
@@ -648,6 +739,9 @@ def main() -> int:
     parser.add_argument("--profile", help="also profile one warm generate chunk of the bf16 "
                         "server with torch.profiler and write its kernel table here (and one "
                         "float32 train step's beside it, as <stem>_train.txt)")
+    parser.add_argument("--rotate-sweep", metavar="PATH",
+                        help="only build the kernels, time every rotation tile that fits at the "
+                        "main path's shapes, write the rows to PATH and stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -670,6 +764,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or line.startswith("built"):
                 print(f"  {name}: {line.strip()}")
+    if args.rotate_sweep:
+        rotate_sweep(args.rotate_sweep)
+        return 0
 
     # -- 3. kernel phases ------------------------------------------------------
     records = []
@@ -772,7 +869,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. transpose kernel; AdaIN backward kernel ----------------------------------
-    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
+    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH, SERVE_CHUNK, 256):
         for dtype in (torch.float32, torch.bfloat16):
             transpose_phase(batch, dtype, records)
     for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
@@ -820,9 +917,13 @@ def main() -> int:
                 "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in picked)
                 else "operations",
                 "library_ms": sum(r["library_ms"] * n for r, n in picked),
+                "library_device_ms": sum(r["library_device_ms"] * n for r, n in picked),
                 "serving_launches": serving_launches.get(kernel)}
         if any("site" in r for r, _ in picked):  # AdaIN: the route of each site and batch
             item["site_routes"] = {f"B{r['batch']} {r['site']}": r["route"] for r, _ in picked}
+        else:  # rotation: the kernel route of each batch, and route v1 in turns
+            item["kernel_route"] = {f"B{r['batch']}": r["route"] for r, _ in picked}
+            item["v1_device_ms"] = sum(r["v1_device_ms"] * n for r, n in picked)
         return item
 
     serving_launches = main_launches

@@ -14,8 +14,9 @@ from confignet_tpu_torch.ops.adain_cuda import (
     fused_adain_backward_plain, fused_adain_forward, fused_adain_plain, fused_adain_plain_with_stats,
     launch_backward, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
+    device_limits as rotate_device_limits, launch_rotate_forward, launch_rotate_transpose,
     rotate_3d_grid_forward, rotate_3d_grid_kernel, rotate_3d_grid_kernel_train, rotate_3d_grid_plain,
-    rotate_3d_grid_transpose, rotate_3d_grid_transpose_plain)
+    rotate_3d_grid_transpose, rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -50,19 +51,58 @@ def _poses(batch, rng):
     return torch.from_numpy(rot.astype(np.float32))
 
 
+def _transforms(case, batch, rng):
+    """(B, 3, 3) transforms: the reference poses, or a degenerate case."""
+    if case == "reference":
+        return euler_angles_to_matrix(_poses(batch, rng))
+    if case == "yaw90":
+        return euler_angles_to_matrix(torch.tensor([[np.pi / 2, 0.0, 0.0]] * batch))
+    if case == "axis90":  # 90 degrees about each axis in turn
+        return euler_angles_to_matrix(torch.eye(3)[torch.arange(batch) % 3] * (np.pi / 2))
+    if case == "scale2":  # most points clamped to the border
+        return 2 * torch.eye(3).expand(batch, 3, 3).contiguous()
+    if case == "zero":  # every point in one cell
+        return torch.zeros((batch, 3, 3))
+    raise ValueError(case)
+
+
+ROTATE_CASES = [("reference", 16, 128), ("reference", 8, 3), ("yaw90", 16, 128),
+                ("axis90", 8, 8), ("scale2", 16, 32), ("zero", 8, 8)]
+
+
+def _rotate_inputs(case, size, channels, dtype, device, seed, batch=5):
+    rng = np.random.default_rng(seed)
+    grid = torch.from_numpy(rng.normal(size=(batch, size, size, size, channels)).astype(np.float32))
+    return grid.to(device, dtype), _transforms(case, batch, rng).to(device)
+
+
+def _rotate_plans(grid, transpose):
+    """The plan the wrapper takes and route v1."""
+    batch, size, channels = grid.shape[0], grid.shape[1], grid.shape[4]
+    picked = rotate_plan(batch, size, channels, grid.dtype, *rotate_device_limits(grid.device.index),
+                         transpose=transpose)
+    assert picked.route == ("owner" if transpose else "slab"), picked
+    return {"plan": picked, "v1": rotate_v1_plan(batch, size, channels)}
+
+
+@pytest.mark.parametrize("route", ["plan", "v1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("size,channels", [(16, 128), (8, 3)])
-def test_rotate_kernel_matches_plain(cuda, dtype, size, channels):
-    rng = np.random.default_rng(0)
-    grid = torch.from_numpy(rng.normal(size=(5, size, size, size, channels)).astype(np.float32))
-    grid = grid.to(cuda, dtype)
-    transform = euler_angles_to_matrix(_poses(5, rng)).to(cuda)
+@pytest.mark.parametrize("case,size,channels", ROTATE_CASES)
+def test_rotate_kernel_matches_plain(cuda, route, dtype, case, size, channels):
+    """The forward kernel on the slab route and on route v1 against its
+    plain version, at the reference poses and degenerate transforms."""
+    grid, transform = _rotate_inputs(case, size, channels, dtype, cuda, 0)
+    plan = _rotate_plans(grid, False)[route]
+    want = rotate_3d_grid_plain(grid, transform)
     before = rotate_3d_grid_forward.launches
-    got = rotate_3d_grid_kernel(grid, transform)
+    if route == "plan":
+        got = rotate_3d_grid_kernel(grid, transform)
+    else:
+        got = launch_rotate_forward(grid, transform, plan)
     torch.cuda.synchronize()
     assert rotate_3d_grid_forward.launches == before + 1
     assert got.dtype == dtype and got.shape == grid.shape
-    err = checked_error(got, rotate_3d_grid_plain(grid, transform))
+    err = checked_error(got, want)
     assert err <= TOL[dtype]["rotate"], err
 
 
@@ -154,25 +194,56 @@ def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
         assert err <= tol, (name, "two_pass", err)
 
 
+@pytest.mark.parametrize("route", ["plan", "v1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch,size,channels", [(12, 16, 128), (3, 8, 3)])
-def test_transpose_kernel_matches_plain(cuda, dtype, batch, size, channels):
-    """The transpose kernel against its plain version (index_add_ in float32);
-    float atomics vary the last bits, so two launches agree only within the
+@pytest.mark.parametrize("case,size,channels", ROTATE_CASES)
+def test_transpose_kernel_matches_plain(cuda, route, dtype, case, size, channels):
+    """The transpose kernel on the owner-computes route and on route v1
+    against its plain version (index_add_ in float32).  The owner route sums
+    every cell in a fixed order, so its two launches are equal bit for bit;
+    v1's float atomics vary the last bits, so its two agree only within the
     tolerance."""
-    rng = np.random.default_rng(3)
-    ct = torch.from_numpy(rng.normal(size=(batch, size, size, size, channels)).astype(np.float32))
-    ct = ct.to(cuda, dtype)
-    transform = euler_angles_to_matrix(_poses(batch, rng)).to(cuda)
+    ct, transform = _rotate_inputs(case, size, channels, dtype, cuda, 3, batch=12)
+    plan = _rotate_plans(ct, True)[route]
     before = rotate_3d_grid_transpose.launches
-    got = rotate_3d_grid_transpose(ct, transform)
-    again = rotate_3d_grid_transpose(ct, transform)
+    if route == "plan":
+        got = rotate_3d_grid_transpose(ct, transform)
+        again = rotate_3d_grid_transpose(ct, transform)
+    else:
+        got = launch_rotate_transpose(ct, transform, plan)
+        again = launch_rotate_transpose(ct, transform, plan)
     torch.cuda.synchronize()
     assert rotate_3d_grid_transpose.launches == before + 2
     assert got.dtype == dtype and got.shape == ct.shape
     want = rotate_3d_grid_transpose_plain(ct, transform)
     assert checked_error(got, want) <= TOL[dtype]["transpose"]
-    assert checked_error(again, got) <= TOL[dtype]["transpose"]
+    if route == "plan":
+        assert torch.equal(again, got)
+    else:
+        assert checked_error(again, got) <= TOL[dtype]["transpose"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [128, 27])
+def test_rotate_kernels_take_unaligned_views(cuda, dtype, channels):
+    """A contiguous grid and ct that start off a 16-byte boundary go through
+    the scalar edge of the 16-byte path, forward and transpose; 27 channels
+    (no whole 16-byte vector) take it at any alignment."""
+    rng = np.random.default_rng(9)
+    shape = (3, 16, 16, 16, channels)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.normal(size=2 * n + 1).astype(np.float32)).to(cuda, dtype)
+    grid, ct = buf[1:1 + n].view(shape), buf[1 + n:].view(shape)
+    assert grid.is_contiguous() and grid.data_ptr() % 16 != 0
+    transform = euler_angles_to_matrix(_poses(3, rng)).to(cuda)
+    got = rotate_3d_grid_forward(grid, transform)
+    assert checked_error(got, rotate_3d_grid_plain(grid, transform)) <= TOL[dtype]["rotate"]
+    grad = rotate_3d_grid_transpose(ct, transform)
+    again = rotate_3d_grid_transpose(ct, transform)
+    torch.cuda.synchronize()
+    assert torch.equal(grad, again)
+    want = rotate_3d_grid_transpose_plain(ct, transform)
+    assert checked_error(grad, want) <= TOL[dtype]["transpose"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
