@@ -19,7 +19,7 @@
    adain_route picks (printed per site) and, for comparison, on the
    two-pass route; the rotation on the slab route rotate_plan picks
    (printed with its plan) and on route v1, the first kernel; each pair
-   timed in turns.
+   timed in turns.  AdaIN also at B=1, the fine-tune's batch.
 4. Serves requests at full width (256px, bf16, 145-dim latents, weights
    from seed 0) through ConfigNetServer(chunk=32): encode 40 photos,
    re-render them with a spliced attribute, generate 256 latents.  The
@@ -33,10 +33,10 @@
    atol 2e-4, bf16 3e-2 relative) on the owner-computes route, whose two
    launches must agree bit for bit, and on route v1, timed in turns beside
    the input gradient of F.grid_sample.  Holds the AdaIN backward kernel
-   against its plain version (torch ops) at the six 256px sites, B=12 and
-   24, float32 and bf16, on its own route and the two-pass route; two
-   launches must agree bit for bit; times it beside the autograd backward
-   of F.group_norm + affine.
+   against its plain version (torch ops) at the six 256px sites, B=12, 24
+   and 1 (the fine-tune's), float32 and bf16, on its own route and the
+   two-pass route; two launches must agree bit for bit; times it beside the
+   autograd backward of F.group_norm + affine.
 7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
    layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
    fake dataset of 64 images: float32, one warm-up and 3 timed steps, each with
@@ -44,13 +44,38 @@
    AdaIN-backward launches, finite losses,
    a nonzero gradient for every generator-player parameter and a moving EMA;
    then bfloat16, the same.  Then one float32 step of a kernel-path model and
-   of a plain-path model (gather rotation, plain AdaIN) on the same weights,
+   of a plain-path model (the gather form with the transform's gradient
+   stopped, as the kernels define it, and plain AdaIN) on the same weights,
    batch and draws: losses within rtol 1e-3, each player's gradient within a
    relative L2 distance of 1e-3, or, where the step's own sensitivity to
    rounding exceeds that, within 4x the distance of a one-site rounding probe
    (see compare_train_paths).
-8. Prints the kernels' JSON record (launches and times on the float32 train
-   step's path), then as the last line {"ok": true, "device": {...}}.
+8. Trains the stage-2 model (ConfigNet: the encoder joins the generator
+   player, VGGFace loss) at the same width and batch, its encoder heads given
+   weights: float32 and bfloat16, one warm-up and 3 timed steps each, with
+   the stage-1 step's launch counts, finite losses, a nonzero gradient for
+   every generator-player parameter (the encoder's included) and a moving
+   EMA.  Then one float32 step of the kernel path and of the plain path,
+   bounded as in step 7.
+9. Fine-tunes the full-width serving model (heads given weights) on one
+   seeded photo with fine_tune_on_img: float32, then bfloat16, one warm call
+   of 1 iteration and a timed call of 50, each iteration with exactly 0
+   rotation, 0 transpose, 6 AdaIN-forward and 6 AdaIN-backward launches (the
+   fine-tune differentiates the rotations, so it resamples with the gather
+   form); a finite final loss, a fine-tuned generator unlike the EMA, the
+   EMA unchanged, and ConfigNetServer.refresh() rendering with the
+   fine-tuned weights.
+10. Fine-tunes along one trajectory (5 iterations of the plain path from the
+   same weights and photo) and at each iteration's state holds the kernel
+   path against the plain path: the loss within rtol 1e-3, the gradient
+   within a relative L2 distance of 1e-3, widened, where the fine-tune's own
+   sensitivity to rounding exceeds it, to 4x the largest distance of a
+   one-site rounding probe along the trajectory; then both render the
+   trajectory's end within a mean abs uint8 difference of 1.0 (see
+   compare_fine_tune_paths).
+11. Prints the kernels' JSON record (launches per path, and times on the
+   float32 train step's path), then as the last line {"ok": true, "device":
+   {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero without a CUDA device, and outside a checkout (the
@@ -81,7 +106,7 @@ from confignet_tpu_torch.ops.rotate_cuda import (
     launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
     rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan, transpose_shared_bytes)
 from confignet_tpu_torch.serving import ConfigNetServer
-from confignet_tpu_torch.training.first_stage import PLAYER_TREES, ConfigNetFirstStage
+from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -94,6 +119,8 @@ ADAIN_SITE_512 = (65536, 16)
 SERVE_CHUNK = 32
 TRAIN_BATCH = 24  # the D updates' generator batch; the G step renders two halves of 12
 TRAIN_STEPS = 3
+FINE_TUNE_ITERS = 50  # bench_train.py's fine-tune flow: one photo, 50 iterations
+FINE_TUNE_COMPARE_ITERS = 5
 # bench_train.py's reference-scale stage-1 config (the reference's defaults at
 # 256px, 5 discriminator layers, the 145-dim latent layout), copied here
 TRAIN_CONFIG = {
@@ -521,13 +548,22 @@ def train_config(compute_dtype: str, **extra):
 KERNEL_WRAPPERS = (rotate_3d_grid_forward, rotate_3d_grid_transpose, fused_adain_forward,
                    fused_adain_backward)
 LAUNCH_NAMES = ("rotate", "transpose", "adain", "adain_backward")
-# per 256px train step: rotation forward, transpose, AdaIN forward (6 sites x
-# 4 generator passes), AdaIN backward (6 sites x the G step's 2 halves of 12)
+# per 256px train step, both stages: rotation forward, transpose, AdaIN
+# forward (6 sites x 4 generator passes), AdaIN backward (6 sites x the G
+# step's 2 halves of 12)
 TRAIN_STEP_LAUNCHES = (4, 2, 24, 12)
+# per fine-tune iteration: the gather resample (no rotation kernel), AdaIN
+# forward and backward at the 6 sites, batch 1
+FINE_TUNE_ITER_LAUNCHES = (0, 0, 6, 6)
 
 
-def train_launches():
+def launch_counts():
     return tuple(w.launches for w in KERNEL_WRAPPERS)
+
+
+def zero_launch_counts():
+    for wrapper in KERNEL_WRAPPERS:
+        wrapper.launches = 0
 
 
 def check_finite(losses, label):
@@ -541,29 +577,30 @@ def train_run(model, dataset, label: str, card: str, kind: str):
     """One warm-up step, then TRAIN_STEPS timed steps (host batches drawn
     beforehand), each with exactly TRAIN_STEP_LAUNCHES kernel launches.  The
     launch counters are zeroed after the warm-up; returns (the counters after
-    the timed steps, the run's record)."""
+    the timed steps, the run's record, the Adam first moments of the
+    generator player after the warm-up step)."""
     step = model._build_train_step()
     batches = [model._sample_host_batch(dataset, dataset) for _ in range(TRAIN_STEPS + 1)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     check_finite(step(batches[0]), label)
     warmup_s = time.perf_counter() - t0
+    first_moments = model.first_moments()["generator"]
 
-    for wrapper in KERNEL_WRAPPERS:
-        wrapper.launches = 0
+    zero_launch_counts()
     all_losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in batches[1:]:
-        before = train_launches()
+        before = launch_counts()
         all_losses.append(step(batch))
-        delta = tuple(after - b for after, b in zip(train_launches(), before))
+        delta = tuple(after - b for after, b in zip(launch_counts(), before))
         if delta != TRAIN_STEP_LAUNCHES:
             raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {delta} in one "
                                  f"step, expected {TRAIN_STEP_LAUNCHES}")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = train_launches()
+    launches = launch_counts()
     for losses in all_losses:
         check_finite(losses, label)
     rec = dict(run=label, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=seconds,
@@ -576,37 +613,63 @@ def train_run(model, dataset, label: str, card: str, kind: str):
           f"warm-up {warmup_s:.1f} s; peak {rec['peak_memory_gb']:.1f} GB; launches {launches}; "
           f"loss_sum g {rec['last_losses']['g']['loss_sum']:.4f} d "
           f"{rec['last_losses']['d']['loss_sum']:.4f}", flush=True)
-    return launches, rec
+    return launches, rec, first_moments
 
 
-def check_generator_gradients_and_ema(model, ema_before) -> dict:
-    """Every generator-player parameter got a nonzero gradient in the last G
-    step (with beta_1 = 0 the Adam first moment is that gradient) and every
-    EMA leaf moved."""
-    zero = [f"{tree}/{key}" for tree, leaves in model.first_moments()["generator"].items()
+def check_generator_gradients_and_ema(model, moments, ema_before, label: str) -> dict:
+    """Every generator-player parameter got a nonzero gradient in the first G
+    step (``moments``: with beta_1 = 0 the Adam first moment is that
+    gradient) and every EMA leaf moved.  The first step is the one that
+    counts: at random weights the encoder's ResNet features reach ~1e5, so
+    one Adam step of the rotation head saturates its tanh and later steps
+    give that head an exactly zero gradient."""
+    zero = [f"{tree}/{key}" for tree, leaves in moments.items()
             for key, value in leaves.items() if not np.any(value)]
     if zero:
-        raise AssertionError(f"generator-player parameters without gradient: {zero[:10]}")
+        raise AssertionError(f"{label}: generator-player parameters without gradient: {zero[:10]}")
     still = [k for k, v in model.generator_smoothed.state_dict().items()
              if torch.equal(v, ema_before[k])]
     if still:
-        raise AssertionError(f"generator_smoothed leaves that did not move: {still[:10]}")
-    n = sum(len(leaves) for leaves in model.first_moments()["generator"].values())
-    print(f"train float32: all {n} generator-player parameters got a nonzero gradient; all "
+        raise AssertionError(f"{label}: generator_smoothed leaves that did not move: {still[:10]}")
+    n = sum(len(leaves) for leaves in moments.values())
+    print(f"train {label}: all {n} generator-player parameters got a nonzero gradient; all "
           f"{len(ema_before)} generator_smoothed leaves moved", flush=True)
     return dict(generator_player_leaves=n, ema_leaves=len(ema_before))
 
 
+def _rotate_plain(grid, transform):
+    """The gather form with the transform's gradient stopped: the plain
+    version of the kernel path's training resample, whose transform gradient
+    is defined zero (stage 2 differentiates the encoder's rotations)."""
+    return rotate_3d_grid(grid, transform.detach())
+
+
 def _rotate_via_float64(grid, transform):
-    """The gather form computed in float64 and rounded once: the plain path
+    """_rotate_plain computed in float64 and rounded once: the plain path
     with one site rounded differently (about one ulp)."""
-    return rotate_3d_grid(grid.double(), transform.double()).to(grid.dtype)
+    return rotate_3d_grid(grid.double(), transform.detach().double()).to(grid.dtype)
 
 
-def compare_train_paths(model_k, dataset) -> dict:
+def pinned_draws(model, rng) -> tuple:
+    """The random draws of one train step, in call order: (latents,
+    rotations, flip masks).  Stage 1 draws latents for the D fakes, the
+    latent-D reals and the G reals, rotations for the D fakes and the G
+    reals, and flips for the D and synth-D reals; stage 2 draws only flips,
+    for the D, synth-D and latent-D reals and the G reals."""
+    half = TRAIN_BATCH // 2
+    if isinstance(model, ConfigNet):
+        return [], [], [rng.random(n) < 0.5 for n in (TRAIN_BATCH,) * 3 + (TRAIN_BATCH - half,)]
+    latent_dim = model.config["latent_dim"]
+    latents = [rng.normal(size=(n, latent_dim)).astype(np.float32)
+               for n in (TRAIN_BATCH, TRAIN_BATCH, TRAIN_BATCH - half)]
+    rotations = [poses(n, rng) for n in (TRAIN_BATCH, TRAIN_BATCH - half)]
+    return latents, rotations, [rng.random(TRAIN_BATCH) < 0.5 for _ in range(2)]
+
+
+def compare_train_paths(model_k, dataset, label: str) -> dict:
     """One float32 step of the kernel-path model and of a plain-path model
-    (gather rotation, plain AdaIN) from the same weights, fresh optimizers,
-    the same host batch and the same draws.
+    of the same class (_rotate_plain, plain AdaIN) from the same weights,
+    fresh optimizers, the same host batch and the same draws.
 
     At random weights the step's gradients amplify last-bit differences in
     the forward a long way (a deterministic rerun of one path agrees
@@ -619,46 +682,53 @@ def compare_train_paths(model_k, dataset) -> dict:
     rounding at 7 sites forward and backward, the probe at one."""
     weights = model_k.get_weights()
     model_k.set_weights(weights)
-    generator_module._ROTATION_IMPLS["gather_via_float64"] = _rotate_via_float64
+    generator_module._ROTATION_IMPLS.update(gather_plain=_rotate_plain,
+                                            gather_via_float64=_rotate_via_float64)
     batch = model_k._sample_host_batch(dataset, dataset)
-    rng = np.random.default_rng(7)
-    latent_dim, half = model_k.config["latent_dim"], TRAIN_BATCH // 2
-    latents = [rng.normal(size=(n, latent_dim)).astype(np.float32)
-               for n in (TRAIN_BATCH, TRAIN_BATCH, TRAIN_BATCH - half)]
-    rotations = [poses(n, rng) for n in (TRAIN_BATCH, TRAIN_BATCH - half)]
-    flips = [rng.random(TRAIN_BATCH) < 0.5 for _ in range(2)]
+    draws = pinned_draws(model_k, np.random.default_rng(7))
 
     def step(model):
-        queues = [list(latents), list(rotations), list(flips)]
-        model._sample_latent = lambda n: torch.from_numpy(queues[0].pop(0)).cuda()
-        model._sample_rotations = lambda n: torch.from_numpy(queues[1].pop(0)).cuda()
-        model._flip_mask = lambda n: torch.from_numpy(queues[2].pop(0)).cuda()
+        queues = [list(d) for d in draws]
+
+        def feeder(queue):
+            def draw(n):
+                value = queue.pop(0)
+                if value.shape[0] != n:
+                    raise AssertionError(f"{label}: a draw of {n} met a pinned {value.shape}")
+                return torch.from_numpy(value).cuda()
+            return draw
+
+        model._sample_latent, model._sample_rotations, model._flip_mask = map(feeder, queues)
         losses = model._build_train_step()(batch)
+        if any(queues):
+            raise AssertionError(f"{label}: the step left pinned draws unused")
         return ({f"{g}/{k}": float(v) for g, d in losses.items() for k, v in d.items()},
                 model.first_moments())
 
     results = {}
-    for name, rotation in (("plain", "gather"), ("probe", "gather_via_float64")):
-        model = ConfigNetFirstStage(train_config("float32", rotation_resample_train=rotation,
-                                                 adain_impl="plain"))
+    for name, rotation in (("plain", "gather_plain"), ("probe", "gather_via_float64")):
+        model = type(model_k)(train_config("float32", rotation_resample_train=rotation,
+                                           adain_impl="plain"))
         model.set_weights(weights)
-        before = train_launches()
+        before = launch_counts()
         results[name] = step(model)
-        if train_launches() != before:
-            raise AssertionError(f"the {name}-path train step launched a kernel")
+        if launch_counts() != before:
+            raise AssertionError(f"{label}: the {name}-path train step launched a kernel")
         del model
         torch.cuda.empty_cache()
-    before = train_launches()
+    before = launch_counts()
     results["kernel"] = step(model_k)
-    delta = tuple(a - b for a, b in zip(train_launches(), before))
+    delta = tuple(a - b for a, b in zip(launch_counts(), before))
     if delta != TRAIN_STEP_LAUNCHES:
-        raise AssertionError(f"the kernel-path train step launched {delta}")
+        raise AssertionError(f"{label}: the kernel-path train step launched {delta}")
 
     def distances(name):
         losses, moments = results[name]
         plain_losses, plain_moments = results["plain"]
-        out = {"losses": max(abs(losses[k] - v) / abs(v) for k, v in plain_losses.items())}
-        for player, trees in PLAYER_TREES.items():
+        # a loss that is exactly zero on both paths (a saturated GAN head) agrees
+        out = {"losses": max(abs(losses[k] - v) / max(abs(v), 1e-30)
+                             for k, v in plain_losses.items())}
+        for player, trees in model_k.PLAYER_TREES.items():
             keys = [(t, k) for t in trees for k in sorted(plain_moments[player][t])]
             a = np.concatenate([moments[player][t][k].ravel() for t, k in keys])
             b = np.concatenate([plain_moments[player][t][k].ravel() for t, k in keys])
@@ -667,12 +737,12 @@ def compare_train_paths(model_k, dataset) -> dict:
 
     kernel, probe = distances("kernel"), distances("probe")
     bounds = {k: max(1e-3, 4 * v) for k, v in probe.items()}
-    print(f"train float32 kernel vs plain path (losses: max relative error; players: relative L2 "
+    print(f"train {label} kernel vs plain path (losses: max relative error; players: relative L2 "
           f"of the gradient): {json.dumps(kernel)}; one-site rounding probe vs plain path: "
           f"{json.dumps(probe)}; bounds {json.dumps(bounds)}", flush=True)
     failed = [k for k in kernel if not kernel[k] <= bounds[k]]
     if failed:
-        raise AssertionError(f"kernel-path and plain-path train steps disagree on {failed}")
+        raise AssertionError(f"{label}: kernel-path and plain-path train steps disagree on {failed}")
     return dict(kernel_vs_plain=kernel, probe_vs_plain=probe, bounds=bounds)
 
 
@@ -700,6 +770,193 @@ def give_encoder_heads_weights(model, photos):
     with torch.no_grad():
         for head in (enc.feature_to_latent, enc.rotation_regressor):
             head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * std)
+
+
+def fine_tune_run(model, photo, label: str, card: str, kind: str):
+    """One warm fine_tune_on_img call of 1 iteration, then a timed call of
+    FINE_TUNE_ITERS, each iteration with exactly FINE_TUNE_ITER_LAUNCHES
+    kernel launches (the step is wrapped to count them).  The counters are
+    zeroed just before the timed call.  Checks a finite final loss, a
+    fine-tuned generator unlike the EMA, the EMA unchanged, and a server's
+    refresh() rendering with the fine-tuned weights.  Returns (the counters
+    after the timed call, the run's record)."""
+    server = ConfigNetServer(model, chunk=1, device=model.device)  # snapshots the EMA generator
+    ema_before = {k: v.clone() for k, v in model.generator_smoothed.state_dict().items()}
+    t0 = time.perf_counter()
+    model.fine_tune_on_img(photo, n_iters=1)
+    warmup_s = time.perf_counter() - t0
+
+    key = (False, 1)  # the step cache's key: (force_neutral_expression, n_imgs)
+    step, per_iter = model._fine_tune_step_cache[key], []
+
+    def counted(*args):
+        before = launch_counts()
+        out = step(*args)
+        per_iter.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+        return out
+
+    model._fine_tune_step_cache[key] = counted
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        embeddings, rotations = model.fine_tune_on_img(photo, n_iters=FINE_TUNE_ITERS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        model._fine_tune_step_cache[key] = step
+    launches = launch_counts()
+    if per_iter != [FINE_TUNE_ITER_LAUNCHES] * FINE_TUNE_ITERS:
+        raise AssertionError(f"fine-tune {label}: launches {LAUNCH_NAMES} per iteration "
+                             f"{sorted(set(per_iter))}, expected {FINE_TUNE_ITER_LAUNCHES}")
+    if launches != tuple(FINE_TUNE_ITERS * n for n in FINE_TUNE_ITER_LAUNCHES):
+        raise AssertionError(f"fine-tune {label}: {launches} launches in the call")
+    final_loss = float(model.fine_tune_losses[-1])
+    if (not np.isfinite(final_loss) or embeddings.shape != (1, model.config["latent_dim"])
+            or rotations.shape != (1, 3)):
+        raise AssertionError(f"fine-tune {label}: loss {final_loss}, shapes {embeddings.shape} "
+                             f"{rotations.shape}")
+    tuned = model._fine_tuned_generator_params
+    if any(not torch.equal(v, ema_before[k]) for k, v in model.generator_smoothed.state_dict().items()):
+        raise AssertionError(f"fine-tune {label}: the EMA generator changed")
+    if all(torch.equal(v, ema_before[k]) for k, v in tuned.items()):
+        raise AssertionError(f"fine-tune {label}: the fine-tuned generator equals the EMA")
+
+    stale = server.generate(embeddings, rotations)
+    server.refresh()
+    fresh = server.generate(embeddings, rotations)
+    direct = model.generate_images(embeddings, rotations)
+    refresh_diff = float(np.mean(np.abs(fresh.astype(int) - direct.astype(int))))
+    if np.array_equal(fresh, stale) or not refresh_diff < 1.0:
+        raise AssertionError(f"fine-tune {label}: refresh() did not render the fine-tuned weights "
+                             f"({refresh_diff})")
+    rec = dict(run=label, iters=FINE_TUNE_ITERS, seconds=seconds,
+               iters_per_s=FINE_TUNE_ITERS / seconds, warmup_s=warmup_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=dict(zip(LAUNCH_NAMES, launches)), final_loss=final_loss,
+               refresh_vs_generate_images=refresh_diff)
+    print(f"fine-tune {label}: {FINE_TUNE_ITERS} iterations in {seconds * 1e3:.1f} ms = "
+          f"{rec['iters_per_s']:.2f} iters/s on {kind} ({card}); warm-up {warmup_s:.1f} s; peak "
+          f"{rec['peak_memory_gb']:.2f} GB; launches {launches}; final loss {final_loss:.6g}; "
+          f"refreshed server vs generate_images {refresh_diff:.4f}", flush=True)
+    return launches, rec
+
+
+def _rotate_via_float64_ft(grid, transform):
+    """The fine-tune's gather form (differentiable in the transform)
+    computed in float64 and rounded once: its one-site rounding probe."""
+    return rotate_3d_grid(grid.double(), transform.double()).to(grid.dtype)
+
+
+def fine_tune_iteration(model, state, values, images):
+    """One fine-tune iteration of ``model`` (its step, its fine-tune
+    generator) from the given generator weights and variable values: the
+    loss, and the gradient with respect to every optimised tensor, flattened
+    in float64, read from a fresh Adam's first moment (0.1 times the
+    gradient after one step)."""
+    generator = model._fine_tune_generator()
+    generator.load_state_dict(state)
+    variables = {k: v.clone().requires_grad_(True) for k, v in values.items()}
+    optimizer = model._fine_tune_optimizer(generator, variables, False)
+    losses, _ = model._get_fine_tune_step(False, images.shape[0])(generator, variables, optimizer,
+                                                                   images)
+    gradient = torch.cat([optimizer.state[p]["exp_avg"].flatten() for group in optimizer.param_groups
+                          for p in group["params"]]).double() / 0.1
+    return float(losses["loss_sum"]), gradient
+
+
+def compare_fine_tune_paths(model_k, photo) -> dict:
+    """Float32 fine-tune iterations with the kernels and with their plain
+    versions (plain AdaIN; the gather resample either way) along one
+    trajectory: FINE_TUNE_COMPARE_ITERS iterations of the plain path's
+    fine-tune step from model_k's weights on ``photo``.  At each
+    iteration's generator, embedding and pose, the kernel path's loss must
+    agree with the plain path's within rtol 1e-3 and its gradient within a
+    relative L2 distance of 1e-3, widened, where the step's own sensitivity
+    to rounding exceeds it, to 4x the largest distance over the trajectory
+    of a probe: the plain path with only the resample computed in float64
+    (_rotate_via_float64_ft), as in compare_train_paths.  The largest, since
+    one iteration's distance is a noisy sample of that sensitivity (from
+    0.4e-3 to 4.5e-3 for the probe along one trajectory; NVIDIA H100, this
+    script).  Then both models render the trajectory's end through
+    generate_images: mean abs uint8 difference below 1.0.
+
+    The paths are compared from one state at every iteration, not each
+    along its own fine-tune, because the fine-tune is chaotic under rounding
+    at random weights: Adam's first steps move every parameter by about lr
+    along the sign of its gradient, and rounding sets the signs of near-zero
+    gradients, so after 5 free-running iterations even the probe's render
+    differs from the plain path's by about 30 uint8 (NVIDIA H100, this
+    script)."""
+    generator_module._ROTATION_IMPLS["gather_via_float64_ft"] = _rotate_via_float64_ft
+    weights = model_k.get_weights()
+    models = {}
+    for name in ("plain", "probe"):
+        model = ConfigNet(serving_config("float32", rotation_resample="gather", adain_impl="plain"))
+        model.set_weights(weights)
+        if name == "probe":
+            model._generator_ft = model._generator("gather_via_float64_ft").to(model.device).eval()
+        models[name] = model
+    models["kernel"] = model_k
+    plain = models["plain"]
+
+    images = (photo[np.newaxis] / 127.5 - 1.0).astype(np.float32)
+    variables = plain._fine_tune_variables(*plain.encode_images(images), False)
+    images = torch.from_numpy(images).to(plain.device)
+    trajectory = plain._generator("gather").to(plain.device).eval()
+    trajectory.load_state_dict(plain.generator_smoothed.state_dict())
+    optimizer = plain._fine_tune_optimizer(trajectory, variables, False)
+    step = plain._get_fine_tune_step(False, 1)
+    kernel = dict(losses=[], gradients=[])
+    probe = dict(losses=[], gradients=[])
+    plain_losses = []
+    for _ in range(FINE_TUNE_COMPARE_ITERS):
+        state = {k: v.detach().clone() for k, v in trajectory.state_dict().items()}
+        values = {k: v.detach().clone() for k, v in variables.items()}
+        results = {}
+        for name, model in models.items():
+            before = launch_counts()
+            results[name] = fine_tune_iteration(model, state, values, images)
+            delta = tuple(a - b for a, b in zip(launch_counts(), before))
+            if delta != (FINE_TUNE_ITER_LAUNCHES if name == "kernel" else (0, 0, 0, 0)):
+                raise AssertionError(f"the {name}-path fine-tune iteration launched {delta}")
+        plain_loss, plain_gradient = results["plain"]
+        plain_losses.append(plain_loss)
+        for name, out in (("kernel", kernel), ("probe", probe)):
+            loss, gradient = results[name]
+            out["losses"].append(abs(loss - plain_loss) / abs(plain_loss))
+            out["gradients"].append((torch.linalg.norm(gradient - plain_gradient)
+                                     / torch.linalg.norm(plain_gradient)).item())
+        step(trajectory, variables, optimizer, images)
+
+    with torch.no_grad():
+        embeddings = plain._fine_tune_embeddings(variables, 1).float().cpu().numpy()
+    rotations = variables["rotations"].detach().float().cpu().numpy()
+    tuned = {k: v.detach().clone() for k, v in trajectory.state_dict().items()}
+    if all(torch.equal(v, plain.generator_smoothed.state_dict()[k]) for k, v in tuned.items()):
+        raise AssertionError("the fine-tune trajectory left the generator unchanged")
+    renders = {}
+    for name in ("plain", "kernel"):
+        models[name]._fine_tuned_generator_params = tuned
+        renders[name] = models[name].generate_images(embeddings, rotations)
+    kernel["e2e_mean_abs_uint8"] = float(np.mean(np.abs(renders["kernel"].astype(int)
+                                                        - renders["plain"].astype(int))))
+    gradient_bound = max(1e-3, 4 * max(probe["gradients"]))
+    bounds = dict(losses=[1e-3] * FINE_TUNE_COMPARE_ITERS,
+                  gradients=[gradient_bound] * FINE_TUNE_COMPARE_ITERS, e2e_mean_abs_uint8=1.0)
+    print(f"fine-tune float32 kernel vs plain path, {FINE_TUNE_COMPARE_ITERS} iterations from the "
+          f"plain path's states (losses: relative error; gradients: relative L2; final render: mean "
+          f"abs uint8 difference): {json.dumps(kernel)}; one-site rounding probe vs plain path: "
+          f"{json.dumps(probe)}; bounds {json.dumps(bounds)}; plain losses {json.dumps(plain_losses)}",
+          flush=True)
+    if not (all(d <= b for d, b in zip(kernel["losses"], bounds["losses"]))
+            and all(d <= b for d, b in zip(kernel["gradients"], bounds["gradients"]))
+            and kernel["e2e_mean_abs_uint8"] <= bounds["e2e_mean_abs_uint8"]
+            and renders["kernel"].std() > 0):
+        raise AssertionError(f"fine-tune kernel and plain paths disagree: {kernel}; bounds {bounds}")
+    return dict(plain_losses=plain_losses, kernel_vs_plain=kernel, probe_vs_plain=probe,
+                bounds=bounds)
 
 
 def profile(label: str, fn, path: str) -> None:
@@ -737,8 +994,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every record to this JSON file")
     parser.add_argument("--profile", help="also profile one warm generate chunk of the bf16 "
-                        "server with torch.profiler and write its kernel table here (and one "
-                        "float32 train step's beside it, as <stem>_train.txt)")
+                        "server with torch.profiler and write its kernel table here (and, beside "
+                        "it, one float32 train step's of each stage, as <stem>_train.txt and "
+                        "<stem>_train2.txt, and a float32 fine-tune of 10 iterations, as "
+                        "<stem>_fine_tune.txt)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -782,6 +1041,10 @@ def main() -> int:
         rotate_phase(batch, torch.float32, records)
         for positions, channels in ADAIN_SITES_256:
             adain_phase(batch, positions, channels, torch.float32, records)
+    # the fine-tune's batch: one photo
+    for dtype in (torch.float32, torch.bfloat16):
+        for positions, channels in ADAIN_SITES_256:
+            adain_phase(1, positions, channels, dtype, records)
     torch.cuda.empty_cache()
 
     # -- 4. serving at full width ----------------------------------------------
@@ -806,8 +1069,7 @@ def main() -> int:
             photos, "blendshape_values", blend)),
         ("generate", 256, 8, lambda: server.generate(latents, rotations)),
     ]
-    rotate_3d_grid_forward.launches = 0
-    fused_adain_forward.launches = 0
+    zero_launch_counts()
     results, served = {}, []
     for name, n_images, gen_chunks, call in requests:
         for attempt in ("cold", "warm"):
@@ -826,8 +1088,7 @@ def main() -> int:
                   f"{n_images / seconds:.1f} img/s on {kind} ({card}); launches rotate {d_rot}, "
                   f"adain {d_ada}", flush=True)
         results[name] = out
-    main_launches = {"rotate_cuda": rotate_3d_grid_forward.launches,
-                     "adain_cuda": fused_adain_forward.launches}
+    path_launches = {"serve": launch_counts()}
     if args.profile:
         chunk = (latents[:SERVE_CHUNK], rotations[:SERVE_CHUNK])
         profile(f"generate chunk {SERVE_CHUNK}", lambda: server.generate(*chunk), args.profile)
@@ -872,7 +1133,7 @@ def main() -> int:
     for batch in (TRAIN_BATCH // 2, TRAIN_BATCH, SERVE_CHUNK, 256):
         for dtype in (torch.float32, torch.bfloat16):
             transpose_phase(batch, dtype, records)
-    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH):
+    for batch in (TRAIN_BATCH // 2, TRAIN_BATCH, 1):
         for dtype in (torch.float32, torch.bfloat16):
             for positions, channels in ADAIN_SITES_256:
                 adain_backward_phase(batch, positions, channels, dtype, records)
@@ -888,70 +1149,135 @@ def main() -> int:
     if trainer.config["latent_dim"] != 145:
         raise AssertionError(trainer.config["latent_dim"])
     ema_before = {k: v.clone() for k, v in trainer.generator_smoothed.state_dict().items()}
-    train_main_launches, train_f32 = train_run(trainer, dataset, "float32", card, kind)
-    train_f32.update(check_generator_gradients_and_ema(trainer, ema_before))
+    path_launches["train_stage1"], train_f32, moments = train_run(trainer, dataset,
+                                                                  "stage1 float32", card, kind)
+    train_f32.update(check_generator_gradients_and_ema(trainer, moments, ema_before,
+                                                       "stage1 float32"))
+
+    def profile_step(model, label, suffix):
+        step = model._build_train_step()
+        batch = model._sample_host_batch(dataset, dataset)
+        profile(label, lambda: step(batch),
+                str(Path(args.profile).with_name(Path(args.profile).stem + suffix)))
+
     if args.profile:
-        step = trainer._build_train_step()
-        batch = trainer._sample_host_batch(dataset, dataset)
-        profile("train step (float32, batch 24)", lambda: step(batch),
-                str(Path(args.profile).with_name(Path(args.profile).stem + "_train.txt")))
-    train_paths = compare_train_paths(trainer, dataset)
+        profile_step(trainer, "train step (stage 1, float32, batch 24)", "_train.txt")
+    train_paths = compare_train_paths(trainer, dataset, "stage1 float32")
     del trainer
     torch.cuda.empty_cache()
-    _, train_bf16 = train_run(ConfigNetFirstStage(train_config("bfloat16")), dataset, "bfloat16",
-                              card, kind)
+    _, train_bf16, _ = train_run(ConfigNetFirstStage(train_config("bfloat16")), dataset,
+                                 "stage1 bfloat16", card, kind)
+    torch.cuda.empty_cache()
 
-    # -- 8. records ------------------------------------------------------------------
-    def entry(kernel, source, replaces, launches, phase_counts):
-        """Times of one float32 train step's launches: the phases at its
-        shapes, each counted as often as the step launches it."""
+    # -- 8. stage-2 training at full width ---------------------------------------------
+    def stage2_trainer(compute_dtype):
+        t0 = time.perf_counter()
+        trainer = ConfigNet(train_config(compute_dtype))
+        give_encoder_heads_weights(trainer, dataset.imgs[:TRAIN_BATCH])
+        print(f"stage-2 trainer ({compute_dtype}): built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return trainer, {k: v.clone() for k, v in trainer.generator_smoothed.state_dict().items()}
+
+    trainer, ema_before = stage2_trainer("float32")
+    path_launches["train_stage2"], train2_f32, moments = train_run(trainer, dataset,
+                                                                   "stage2 float32", card, kind)
+    train2_f32.update(check_generator_gradients_and_ema(trainer, moments, ema_before,
+                                                        "stage2 float32"))
+    if args.profile:
+        profile_step(trainer, "train step (stage 2, float32, batch 24)", "_train2.txt")
+    train2_paths = compare_train_paths(trainer, dataset, "stage2 float32")
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, ema_before = stage2_trainer("bfloat16")
+    _, train2_bf16, moments = train_run(trainer, dataset, "stage2 bfloat16", card, kind)
+    train2_bf16.update(check_generator_gradients_and_ema(trainer, moments, ema_before,
+                                                         "stage2 bfloat16"))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # -- 9. one-shot fine-tune at full width; 10. its kernel path vs plain path ---------
+    photo = photos[0]
+    model = ConfigNet(serving_config("float32"))
+    give_encoder_heads_weights(model, photos[:8])
+    path_launches["fine_tune"], fine_tune_f32 = fine_tune_run(model, photo, "float32", card, kind)
+    if args.profile:
+        profile("fine-tune (float32, 10 iterations)",
+                lambda: model.fine_tune_on_img(photo, n_iters=10),
+                str(Path(args.profile).with_name(Path(args.profile).stem + "_fine_tune.txt")))
+    fine_tune_paths = compare_fine_tune_paths(model, photo)
+    del model
+    torch.cuda.empty_cache()
+    model = ConfigNet(serving_config("bfloat16"))
+    give_encoder_heads_weights(model, photos[:8])
+    _, fine_tune_bf16 = fine_tune_run(model, photo, "bfloat16", card, kind)
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 11. records -----------------------------------------------------------------
+    def times(phase_counts, dtype="float32"):
+        """The phases at a path's shapes, each counted as often as the path
+        launches it: error, times and bound of the path's launches."""
         picked = [(r, n) for r in records for (name, batch), n in phase_counts.items()
-                  if r["kernel"] == name and r["batch"] == batch and r["dtype"] == "float32"]
+                  if r["kernel"] == name and r["batch"] == batch and r["dtype"] == dtype]
+        summed = {key: sum(r[key] * n for r, n in picked)
+                  for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                              "library_device_ms")}
+        return dict(max_abs_err=max(r["max_abs_err"] for r, _ in picked), **summed,
+                    bound_by="bytes" if all(r["bound_by"] == "bytes" for r, _ in picked)
+                    else "operations"), picked
+
+    def entry(kernel, source, replaces, index, phase_counts):
+        """Launches on each path (``launches``: the float32 stage-2 train
+        run's), and the times of one float32 train step's launches; for
+        AdaIN also those of one fine-tune iteration's (six sites at B=1)."""
+        step_times, picked = times(phase_counts)
         item = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
-                "ms": sum(r["ms"] * n for r, n in picked),
-                "device_ms": sum(r["device_ms"] * n for r, n in picked),
-                "plain_ms": sum(r["plain_ms"] * n for r, n in picked),
-                "bound_ms": sum(r["bound_ms"] * n for r, n in picked),
-                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in picked)
-                else "operations",
-                "library_ms": sum(r["library_ms"] * n for r, n in picked),
-                "library_device_ms": sum(r["library_device_ms"] * n for r, n in picked),
-                "serving_launches": serving_launches.get(kernel)}
+                "launches": path_launches["train_stage2"][index],
+                "launches_by_path": {path: counts[index] for path, counts in path_launches.items()},
+                **step_times}
         if any("site" in r for r, _ in picked):  # AdaIN: the route of each site and batch
             item["site_routes"] = {f"B{r['batch']} {r['site']}": r["route"] for r, _ in picked}
+            item["fine_tune_iteration"] = {dtype: times({(kernel, 1): 1}, dtype)[0]
+                                           for dtype in ("float32", "bfloat16")}
         else:  # rotation: the kernel route of each batch, and route v1 in turns
             item["kernel_route"] = {f"B{r['batch']}": r["route"] for r, _ in picked}
             item["v1_device_ms"] = sum(r["v1_device_ms"] * n for r, n in picked)
         return item
 
-    serving_launches = main_launches
     half = TRAIN_BATCH // 2
-    n_rot, n_transpose, n_adain, n_adain_backward = train_main_launches
     kernels = [
         entry("rotate_cuda", "confignet_tpu_torch/csrc/rotate.cu",
-              "confignet_tpu/ops/rotate_pallas.py:65", n_rot,
+              "confignet_tpu/ops/rotate_pallas.py:65", 0,
               {("rotate_cuda", TRAIN_BATCH): 2, ("rotate_cuda", half): 2}),
         entry("rotate_transpose_cuda", "confignet_tpu_torch/csrc/rotate.cu",
-              "confignet_tpu/ops/rotate_pallas.py:95", n_transpose,
+              "confignet_tpu/ops/rotate_pallas.py:95", 1,
               {("rotate_transpose_cuda", half): 2}),
         entry("adain_cuda", "confignet_tpu_torch/csrc/adain.cu",
-              "confignet_tpu/ops/adain_pallas.py:29", n_adain,
+              "confignet_tpu/ops/adain_pallas.py:29", 2,
               {("adain_cuda", TRAIN_BATCH): 2, ("adain_cuda", half): 2}),
         entry("adain_backward_cuda", "confignet_tpu_torch/csrc/adain.cu",
-              "confignet_tpu/ops/adain_pallas.py:87", n_adain_backward,
+              "confignet_tpu/ops/adain_pallas.py:87", 3,
               {("adain_backward_cuda", half): 2}),
     ]
+    # the kernels each path runs: serving renders only; the fine-tune
+    # resamples with the gather form
+    on_path = {"serve": {"rotate_cuda", "adain_cuda"},
+               "train_stage1": {item["name"] for item in kernels},
+               "train_stage2": {item["name"] for item in kernels},
+               "fine_tune": {"adain_cuda", "adain_backward_cuda"}}
     for item in kernels:
-        if item["launches"] < 1:
-            raise AssertionError(f"{item['name']} was not launched on the main path")
+        missed = [path for path, names in on_path.items()
+                  if item["name"] in names and item["launches_by_path"][path] < 1]
+        if missed:
+            raise AssertionError(f"{item['name']} was not launched on the {missed} path(s)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kind": kind, "torch": torch.__version__, "cuda": torch.version.cuda,
              "phases": records, "serving": served, "e2e_mean_abs_uint8": e2e,
              "train": [train_f32, train_bf16], "train_paths": train_paths,
+             "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
+             "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

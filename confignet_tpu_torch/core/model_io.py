@@ -90,10 +90,11 @@ def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
 def export_jax_tensors(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
     """(torch parameter name, tensor of that parameter's shape) pairs -> float32
     numpy arrays in JAX layout under the parameters' pytree-path keys (the
-    parameters themselves, or per-parameter optimizer state)."""
+    parameters themselves, or per-parameter optimizer state).  The arrays are
+    copies: later updates of the tensors do not show in them."""
     flat = {}
     for name, tensor in named:
-        value = tensor.detach().to("cpu", torch.float32).numpy()
+        value = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
         if name.endswith("weight"):
             value = np.ascontiguousarray(value.transpose(_TO_JAX[value.ndim]))
         flat[_jax_key(name)] = value

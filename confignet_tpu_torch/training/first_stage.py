@@ -13,12 +13,13 @@ without gradient; (b) the synthetic-D update likewise; (c) the latent-D
 update on ``z ~ prior`` against ``E_s(facemodel)``; (d) the generator
 player's update (generator, latent regressor and synthetic encoder under one
 Adam) against the already-updated discriminators; (e) the EMA of the
-generator.  Each player's gradient is taken with ``torch.autograd.grad`` over
-its own parameters only, so the G step's backward never reaches a D
-optimizer.  Random draws come from one ``torch.Generator`` on the model's
-device, seeded from ``config["seed"]``, through three methods a caller may
-override (:meth:`_sample_latent`, :meth:`_sample_rotations`,
-:meth:`_flip_mask`).
+generator.  The second stage (``second_stage.py``) reuses the step and
+swaps in its own image-D fakes, latent-D reals and generator losses.  Each
+player's gradient is taken with ``torch.autograd.grad`` over its own
+parameters only, so the G step's backward never reaches a D optimizer.
+Random draws come from one ``torch.Generator`` on the model's device, seeded
+from ``config["seed"]``, through three methods a caller may override
+(:meth:`_sample_latent`, :meth:`_sample_rotations`, :meth:`_flip_mask`).
 """
 from __future__ import annotations
 
@@ -108,7 +109,7 @@ DEFAULT_CONFIG: Dict[str, Any] = {
     "seed": 0,
 }
 
-# each player's parameter trees, updated by one optimizer
+# each stage-1 player's parameter trees, updated by one optimizer
 PLAYER_TREES: Dict[str, Tuple[str, ...]] = {
     "generator": ("generator", "latent_regressor", "synthetic_encoder"),
     "discriminator": ("discriminator",),
@@ -137,6 +138,8 @@ class ConfigNetFirstStage:
     # parameter trees, under their checkpoint names (first_stage.py:1239-1250)
     WEIGHT_TREES = ("generator", "generator_smoothed", "latent_regressor", "synthetic_encoder",
                     "discriminator", "synth_discriminator", "latent_discriminator")
+    # each player's trees under one Adam (a subclass adds its own)
+    PLAYER_TREES = PLAYER_TREES
 
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
                  initialize: bool = True):
@@ -235,7 +238,7 @@ class ConfigNetFirstStage:
         package resets its optimizer states)."""
         self._player_params = {
             player: [p for tree in trees for p in getattr(self, tree).parameters()]
-            for player, trees in PLAYER_TREES.items()}
+            for player, trees in self.PLAYER_TREES.items()}
         self.optimizers = {player: make_adam(params, self.config["optimizer"])
                            for player, params in self._player_params.items()}
 
@@ -261,7 +264,7 @@ class ConfigNetFirstStage:
         first moment in the checkpoint layout (zeros before its first step).
         With ``beta_1 = 0`` it is the gradient of the player's last update."""
         moments = {}
-        for player, trees in PLAYER_TREES.items():
+        for player, trees in self.PLAYER_TREES.items():
             state = self.optimizers[player].state
             moments[player] = {
                 tree: export_jax_tensors(
@@ -311,9 +314,24 @@ class ConfigNetFirstStage:
         for p in params:
             p.grad = None
 
-    def _g_step_losses(self, gb: Batch, z_real: torch.Tensor,
-                       rot_real: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The generator player's losses (first_stage.py:401-435)."""
+    def _image_d_fakes(self, b: Batch, batch_size: int) -> torch.Tensor:
+        """The image discriminator's fakes, without gradient: G(z, rot) of
+        the pre-step generator, z and rot from the prior."""
+        z = self._sample_latent(batch_size)
+        rot = self._sample_rotations(batch_size)
+        with torch.no_grad():
+            return self.generator(z, rot)
+
+    def _latent_d_reals(self, b: Batch, batch_size: int) -> torch.Tensor:
+        """The latent discriminator's real side: z ~ prior."""
+        return self._sample_latent(batch_size)
+
+    def _generator_losses(self, gb: Batch, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The generator player's losses (first_stage.py:401-435): prior
+        draws for the real-set half of the batch."""
+        n_real = batch_size - gb["g_gt_imgs"].shape[0]
+        z_real = self._sample_latent(n_real)
+        rot_real = self._sample_rotations(n_real)
         cfg = self.config
         losses: Dict[str, torch.Tensor] = {}
         synth_latents = self.synthetic_encoder(gb["g_facemodel"])
@@ -346,13 +364,12 @@ class ConfigNetFirstStage:
     def _build_train_step(self) -> Callable[[Batch], Dict[str, Dict[str, torch.Tensor]]]:
         """``step(host_batch) -> {"g", "d", "synth_d", "latent_d"}`` loss
         dicts (detached 0-d tensors on the device).  Updates the parameters,
-        the optimizers and the EMA generator in place."""
+        the optimizers and the EMA generator in place.  A stage supplies the
+        image-D fakes, the latent-D reals and the generator player's losses
+        (:meth:`_image_d_fakes`, :meth:`_latent_d_reals`,
+        :meth:`_generator_losses`)."""
         r1_heads = self.config.get("r1_heads", "all")
         n_d_updates, n_g_updates, multi, sub_batch = self._sub_update_plan()
-
-        def no_grad(module, *inputs):
-            with torch.no_grad():
-                return module(*inputs)
 
         def step(host_batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
             batch = self._batch_to_device(host_batch)
@@ -361,12 +378,10 @@ class ConfigNetFirstStage:
             for u in range(n_d_updates):
                 b = sub_batch(batch, u, g_fields=False)
 
-                # (a) image discriminator: real set vs G(z), pre-step G
+                # (a) image discriminator: real set vs fakes of the pre-step G
                 real_imgs = batched_hflip(self._to_unit_range(b["d_real_imgs"]),
                                           self._flip_mask(batch_size))
-                z = self._sample_latent(batch_size)
-                rot = self._sample_rotations(batch_size)
-                fake_imgs = no_grad(self.generator, z, rot)
+                fake_imgs = self._image_d_fakes(b, batch_size)
                 d_losses = compute_discriminator_loss(self.discriminator, real_imgs, fake_imgs,
                                                       r1_heads=r1_heads)
                 self._update("discriminator", d_losses["loss_sum"])
@@ -374,27 +389,24 @@ class ConfigNetFirstStage:
                 # (b) synthetic discriminator: synth set vs G(E_s(params))
                 synth_real = batched_hflip(self._to_unit_range(b["synth_d_real_imgs"]),
                                            self._flip_mask(batch_size))
-                synth_latents = no_grad(self.synthetic_encoder, b["synth_d_facemodel"])
-                synth_fake = no_grad(self.generator, synth_latents, b["synth_d_rotations"])
+                with torch.no_grad():
+                    synth_latents = self.synthetic_encoder(b["synth_d_facemodel"])
+                    synth_fake = self.generator(synth_latents, b["synth_d_rotations"])
                 synth_d_losses = compute_discriminator_loss(
                     self.synth_discriminator, synth_real, synth_fake, r1_heads=r1_heads)
                 self._update("synth_discriminator", synth_d_losses["loss_sum"])
 
-                # (c) latent discriminator: z ~ prior vs E_s(params)
-                real_latents = self._sample_latent(batch_size)
-                fake_latents = no_grad(self.synthetic_encoder, b["latent_d_facemodel"])
+                # (c) latent discriminator: real latents vs E_s(params)
+                real_latents = self._latent_d_reals(b, batch_size)
+                with torch.no_grad():
+                    fake_latents = self.synthetic_encoder(b["latent_d_facemodel"])
                 latent_d_losses = compute_latent_discriminator_loss(
                     self.latent_discriminator, real_latents, fake_latents)
                 self._update("latent_discriminator", latent_d_losses["loss_sum"])
 
-            # (d) generator + latent regressor + synthetic encoder, against
-            # the updated discriminators
+            # (d) the generator player, against the updated discriminators
             for u in range(n_g_updates):
-                gb = sub_batch(batch, u, g_fields=True)
-                n_real = batch_size - gb["g_gt_imgs"].shape[0]
-                z_real = self._sample_latent(n_real)
-                rot_real = self._sample_rotations(n_real)
-                g_losses = self._g_step_losses(gb, z_real, rot_real)
+                g_losses = self._generator_losses(sub_batch(batch, u, g_fields=True), batch_size)
                 self._update("generator", g_losses["loss_sum"])
 
             # (e) EMA

@@ -1,44 +1,205 @@
-"""ConfigNet second stage, inference half (counterpart of
-``confignet_tpu/training/second_stage.py``): adds the real-image encoder
-and ``encode_images``.  The stage-2 training step and the one-shot
-fine-tune come with later slices, in this file.
+"""ConfigNet second stage (counterpart of
+``confignet_tpu/training/second_stage.py``; reference:
+confignet/confignet_second_stage.py).  On top of the first stage:
+
+- the ResNet50 ``RealEncoder`` joins the generator player (generator, latent
+  regressor, synthetic encoder and encoder under one Adam), and a VGGFace
+  perceptual loss is added;
+- the train step (:meth:`ConfigNet._build_train_step`) autoencodes real
+  images: the image discriminator sees hflipped real images against
+  ``G(E(real))``, the latent discriminator encoder latents against
+  synthetic-encoder latents, and the generator player takes image losses on
+  both domains, the domain-adversarial latent loss and the
+  variance-normalised latent regression;
+- the one-shot fine-tune (:meth:`ConfigNet.fine_tune_on_img`) optimises a
+  copy of the EMA generator, the split embedding (pre-expression /
+  expression / post-expression) and the rotations against perceptual and
+  GAN losses, one Adam step an iteration.
+
+The training generator resamples with ``rotation_resample_train``: on CUDA
+the kernels, whose transform gradient is zero as the JAX package's TPU
+kernel's is, so the encoder's rotation head learns only through the latent
+regression labels; on the CPU the gather form, which passes the full
+gradient, as JAX on the CPU does.  The fine-tune differentiates the
+rotations and so renders through the gather form on every device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+import os
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from confignet_tpu_torch.core import initializers
+from confignet_tpu_torch.core.images import batched_hflip, unit_range_to_uint8, write_png
+from confignet_tpu_torch.core.model_io import export_jax_params
+from confignet_tpu_torch.losses.gan import eye_loss, gan_d_loss, gan_g_loss, normalized_latent_regression_loss
+from confignet_tpu_torch.losses.perceptual import PerceptualLoss
 from confignet_tpu_torch.models.real_encoder import RealEncoder
-from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+from confignet_tpu_torch.training.first_stage import PLAYER_TREES, Batch, ConfigNetFirstStage
+from confignet_tpu_torch.training.state import make_fine_tune_adam
+
+FineTuneStep = Callable[[torch.nn.Module, Dict[str, torch.Tensor], torch.optim.Optimizer, torch.Tensor],
+                        Tuple[Dict[str, torch.Tensor], torch.Tensor]]
 
 
 class ConfigNet(ConfigNetFirstStage):
     MODEL_TYPE = "ConfigNet"
     WEIGHT_TREES = ConfigNetFirstStage.WEIGHT_TREES + ("real_encoder",)
+    # the encoder is trained jointly in the G step (confignet_second_stage.py:213-214)
+    PLAYER_TREES = {**PLAYER_TREES, "generator": PLAYER_TREES["generator"] + ("real_encoder",)}
 
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
                  initialize: bool = True):
+        self._fine_tune_step_cache: Dict[Tuple[bool, int], FineTuneStep] = {}
+        self._generator_ft: Optional[torch.nn.Module] = None
+        # the loss sums of the last fine_tune_on_img call, 0-d tensors on the device
+        self.fine_tune_losses = []
         super().__init__(config, device=device, initialize=initialize)
         self.config["model_type"] = self.MODEL_TYPE
 
     def _build_modules(self) -> None:
         super()._build_modules()
+        cfg = self.config
         self.real_encoder = RealEncoder(
-            latent_dim=self.config["latent_dim"],
-            rotation_ranges=tuple(tuple(r) for r in self.config["rotation_ranges"]),
-            dtype=self.compute_dtype, trunk_norm=self.config.get("encoder_norm", "frozen"))
+            latent_dim=cfg["latent_dim"],
+            rotation_ranges=tuple(tuple(r) for r in cfg["rotation_ranges"]),
+            dtype=self.compute_dtype, trunk_norm=cfg.get("encoder_norm", "frozen"))
+        self.perceptual_loss_face_reco = PerceptualLoss("VGGFace", taps=cfg.get("perceptual_taps"))
 
     def initialize_network(self) -> None:
         super().initialize_network()
         rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)) + 1)
         initializers.initialize(self.real_encoder, rng)
 
-    def _build_train_step(self):
-        raise NotImplementedError("the stage-2 training step is not ported yet; "
-                                  "ConfigNetFirstStage has the stage-1 step")
+    def _to_device(self) -> None:
+        super()._to_device()
+        self.perceptual_loss_face_reco.to(self.device)
+
+    def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]) -> None:
+        """Full ConfigNet weights, or stage-1 weights without a
+        ``real_encoder`` tree, in which case the current encoder is kept (the
+        stage-1 -> stage-2 transfer, reference train_confignet.py:69).  Every
+        stage-1 tree must be present; the optimizer states are reset."""
+        if "real_encoder" not in weights:
+            weights = {**weights, "real_encoder": export_jax_params(self.real_encoder)}
+        super().set_weights(weights)
+
+    # ------------------------------------------------------------------
+    # The stage-2 train step: the first stage's step with these parts
+    # ------------------------------------------------------------------
+
+    def _image_d_fakes(self, b: Batch, batch_size: int) -> torch.Tensor:
+        """G(E(d_input_imgs)), without gradient."""
+        with torch.no_grad():
+            latents, rotations = self.real_encoder(self._to_unit_range(b["d_input_imgs"]))
+            return self.generator(latents, rotations)
+
+    def _latent_d_reals(self, b: Batch, batch_size: int) -> torch.Tensor:
+        """Encoder latents of hflipped real images, without gradient."""
+        imgs = batched_hflip(self._to_unit_range(b["latent_d_real_imgs"]), self._flip_mask(batch_size))
+        with torch.no_grad():
+            return self.real_encoder(imgs)[0]
+
+    def _generator_losses(self, gb: Batch, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The generator player's losses (second_stage.py:162-244)."""
+        cfg = self.config
+        w_img = cfg["image_loss_weight"]
+        w_pix = cfg.get("pixel_loss_weight", 0.0)
+        w_inv = cfg.get("encoder_inversion_weight", 0.0)
+        w_reg = cfg["latent_regression_weight"]
+        losses: Dict[str, torch.Tensor] = {}
+        synth_latents = self.synthetic_encoder(gb["g_facemodel"])
+        out_synth = self.generator(synth_latents, gb["g_rotations"])
+
+        real_imgs = batched_hflip(self._to_unit_range(gb["g_real_imgs"]),
+                                  self._flip_mask(gb["g_real_imgs"].shape[0]))
+        real_latents, real_rotations = self.real_encoder(real_imgs)
+        out_real = self.generator(real_latents, real_rotations)
+
+        gt_synth = self._to_unit_range(gb["g_gt_imgs"])
+        losses["image_loss_synth"] = w_img * self.perceptual_loss.loss_fn(gt_synth, out_synth)
+        losses["image_loss_real"] = w_img * self.perceptual_loss.loss_fn(real_imgs, out_real)
+        if w_pix > 0.0:
+            # pixel L1 on the synthetic pair only (second_stage.py:186-195)
+            losses["pixel_loss_synth"] = w_pix * (gt_synth - out_synth).abs().mean()
+        if w_inv > 0.0:
+            # the encoder alone learns to invert: the render goes through
+            # the generator with its parameters detached (second_stage.py:196-208)
+            frozen = {name: p.detach() for name, p in self.generator.named_parameters()}
+            out_real_frozen = torch.func.functional_call(self.generator, frozen,
+                                                         (real_latents, real_rotations))
+            losses["encoder_inversion_loss"] = w_inv * (real_imgs - out_real_frozen).abs().mean()
+        losses["eye_loss"] = cfg["eye_loss_weight"] * eye_loss(gt_synth, out_synth, gb["g_eye_masks"])
+
+        for i, head in enumerate(self.synth_discriminator(out_synth).values()):
+            losses[f"GAN_loss_synth_{i}"] = gan_g_loss(head)
+        for i, head in enumerate(self.discriminator(out_real).values()):
+            losses[f"GAN_loss_real_{i}"] = gan_g_loss(head)
+
+        # domain-adversarial: labels real -> 0, synth -> 1
+        # (confignet_second_stage.py:160-199)
+        ld_out_real = self.latent_discriminator(real_latents)
+        ld_out_synth = self.latent_discriminator(synth_latents)
+        ld_out = torch.cat([ld_out_real, ld_out_synth], dim=0)
+        labels = torch.cat([torch.zeros_like(ld_out_real), torch.ones_like(ld_out_synth)], dim=0)
+        losses["latent_GAN_loss"] = cfg["domain_adverserial_loss_weight"] * gan_d_loss(labels, ld_out)
+
+        if w_reg > 0.0:
+            stacked_latents = torch.cat([synth_latents, real_latents], dim=0)
+            stacked_outputs = torch.cat([out_synth, out_real], dim=0)
+            stacked_rotations = torch.cat([gb["g_rotations"], real_rotations], dim=0)
+            labels = torch.cat([stacked_latents,
+                                cfg["latent_regressor_rot_weight"] * stacked_rotations], dim=-1)
+            losses["latent_regression_loss"] = normalized_latent_regression_loss(
+                self.latent_regressor(stacked_outputs), labels, w_reg)
+        losses["loss_sum"] = sum(losses.values())
+        return losses
+
+    def _sample_host_batch_single(self, real_training_set, synth_training_set,
+                                  d_fields: bool = True, g_fields: bool = True) -> Batch:
+        """One stage-2 host batch, drawn from ``self._batch_rng`` in the JAX
+        package's order (second_stage.py:376-432); numpy indexing gathers the
+        same bytes as its native gather."""
+        rng = self._batch_rng
+        batch_size = self.config["batch_size"]
+        n_synth = batch_size // 2
+        n_real_imgs, n_synth_imgs = real_training_set.imgs.shape[0], synth_training_set.imgs.shape[0]
+        real, synth = real_training_set.imgs, synth_training_set.imgs
+        rotations = synth_training_set.metadata_inputs["rotations"]
+        batch: Batch = {}
+        if d_fields:
+            d_real_idx = rng.randint(0, n_real_imgs, batch_size)
+            d_input_idx = rng.randint(0, n_real_imgs, batch_size)
+            sd_idx = rng.randint(0, n_synth_imgs, batch_size)
+            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            ld_real_idx = rng.randint(0, n_real_imgs, batch_size)
+            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            batch.update({
+                "d_real_imgs": np.ascontiguousarray(real[d_real_idx]),
+                "d_input_imgs": np.ascontiguousarray(real[d_input_idx]),
+                "synth_d_real_imgs": np.ascontiguousarray(synth[sd_idx]),
+                "synth_d_facemodel": self._facemodel_batch(synth_training_set, sd_fm_idx),
+                "synth_d_rotations": np.ascontiguousarray(rotations[sd_fm_idx], dtype=np.float32),
+                "latent_d_real_imgs": np.ascontiguousarray(real[ld_real_idx]),
+                "latent_d_facemodel": self._facemodel_batch(synth_training_set, ld_fm_idx),
+            })
+        if g_fields:
+            g_idx = rng.randint(0, n_synth_imgs, n_synth)
+            g_real_idx = rng.randint(0, n_real_imgs, batch_size - n_synth)
+            batch.update({
+                "g_facemodel": self._facemodel_batch(synth_training_set, g_idx),
+                "g_rotations": np.ascontiguousarray(rotations[g_idx], dtype=np.float32),
+                "g_gt_imgs": np.ascontiguousarray(synth[g_idx]),
+                "g_eye_masks": np.ascontiguousarray(np.asarray(synth_training_set.eye_masks)[g_idx]),
+                "g_real_imgs": np.ascontiguousarray(real[g_real_idx]),
+            })
+        return batch
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
 
     @torch.inference_mode()
     def encode_images(self, input_images, batch_chunk: int = 32) -> Tuple[np.ndarray, np.ndarray]:
@@ -62,3 +223,140 @@ class ConfigNet(ConfigNetFirstStage):
             lat_out.append(lat.float().cpu().numpy()[:chunk - pad])
             rot_out.append(rot.float().cpu().numpy()[:chunk - pad])
         return np.concatenate(lat_out), np.concatenate(rot_out)
+
+    # ------------------------------------------------------------------
+    # One-shot fine-tuning (reference: confignet_second_stage.py:321-403)
+    # ------------------------------------------------------------------
+
+    def fine_tune_on_img(self, input_images, n_iters: int = 50, img_output_dir: Optional[str] = None,
+                         force_neutral_expression: bool = False,
+                         mesh=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Fine-tune a copy of the EMA generator, the embedding and the
+        rotations on one or more photos (uint8 or [-1, 1] float) for
+        ``n_iters`` Adam steps; afterwards ``generate_images`` renders with
+        the fine-tuned generator.  Returns float32 (embeddings, rotations).
+        ``img_output_dir`` receives ``gt_img.png`` and one render an
+        iteration.  The per-iteration loss sums stay in
+        :attr:`fine_tune_losses` (0-d tensors on the device)."""
+        if mesh is not None:
+            raise NotImplementedError("fine-tuning over a device mesh needs parallel/, which is not "
+                                      "ported yet")
+        input_images = np.asarray(input_images)
+        if input_images.dtype == np.uint8:
+            input_images = input_images / 127.5 - 1.0
+        input_images = input_images.astype(np.float32)
+        if input_images.ndim == 3:
+            input_images = input_images[np.newaxis]
+        n_imgs = input_images.shape[0]
+
+        embeddings, rotations = self.encode_images(input_images)
+        variables = self._fine_tune_variables(embeddings, rotations, force_neutral_expression)
+        generator = self._fine_tune_generator()
+        optimizer = self._fine_tune_optimizer(generator, variables, force_neutral_expression)
+        step = self._get_fine_tune_step(force_neutral_expression, n_imgs)
+        images = torch.from_numpy(input_images).to(self.device)
+
+        if img_output_dir is not None:
+            os.makedirs(img_output_dir, exist_ok=True)
+            write_png(os.path.join(img_output_dir, "gt_img.png"),
+                      unit_range_to_uint8(input_images)[0])
+        self.fine_tune_losses = []
+        for step_number in range(n_iters):
+            losses, out = step(generator, variables, optimizer, images)
+            self.fine_tune_losses.append(losses["loss_sum"])
+            if img_output_dir is not None:
+                print(float(losses["loss_sum"]))
+                write_png(os.path.join(img_output_dir, "output_%02d.png" % step_number),
+                          unit_range_to_uint8(out.float().cpu().numpy())[0])
+        if n_iters > 0:
+            print("fine-tune final loss: %f" % float(self.fine_tune_losses[-1]))
+
+        self._fine_tuned_generator_params = {k: v.detach().clone()
+                                             for k, v in generator.state_dict().items()}
+        with torch.no_grad():
+            embeddings = self._fine_tune_embeddings(variables, n_imgs)
+        return embeddings.float().cpu().numpy(), variables["rotations"].detach().float().cpu().numpy()
+
+    def _fine_tune_variables(self, embeddings: np.ndarray, rotations: np.ndarray,
+                             force_neutral_expression: bool) -> Dict[str, torch.Tensor]:
+        """The optimised embedding, split around the expression slice (the
+        segments before and after it shared by all images, their mean), and
+        the rotations, as leaf tensors on the device."""
+        if force_neutral_expression:
+            n_blend = self.config["facemodel_inputs"]["blendshape_values"][0]
+            embeddings = self.set_facemodel_param_in_latents(
+                embeddings, "blendshape_values", np.zeros((1, n_blend), np.float32))
+        expr_idxs = self.get_facemodel_param_idxs_in_latent("blendshape_values")
+        expr_start, expr_stop = expr_idxs[0], expr_idxs[-1] + 1
+        mean_embedding = np.mean(embeddings, axis=0, keepdims=True)
+        variables = {"pre_expr": mean_embedding[:, :expr_start],
+                     "expr": embeddings[:, expr_start:expr_stop],
+                     "post_expr": mean_embedding[:, expr_stop:],
+                     "rotations": rotations}
+        return {k: torch.tensor(np.asarray(v, np.float32), device=self.device).requires_grad_(True)
+                for k, v in variables.items()}
+
+    def _fine_tune_generator(self) -> torch.nn.Module:
+        """The fine-tune view of the EMA generator (first_stage.py:288,
+        352-355): the gather resample, differentiable in the rotations, and
+        the configured AdaIN.  Built once; each call loads a copy of
+        generator_smoothed's weights into it, so it never aliases the EMA."""
+        if self._generator_ft is None:
+            self._generator_ft = self._generator("gather").to(self.device).eval()
+        self._generator_ft.load_state_dict(self.generator_smoothed.state_dict())
+        return self._generator_ft
+
+    @staticmethod
+    def _fine_tune_optimizer(generator: torch.nn.Module, variables: Dict[str, torch.Tensor],
+                             force_neutral_expression: bool) -> torch.optim.Adam:
+        """A fresh Adam over the generator copy and the variables; with a
+        forced neutral expression the ``expr`` segment is left out, which is
+        optax's ``multi_transform`` with ``set_to_zero`` (second_stage.py:714-720)."""
+        frozen = ("expr",) if force_neutral_expression else ()
+        return make_fine_tune_adam(list(generator.parameters())
+                                   + [v for k, v in variables.items() if k not in frozen])
+
+    @staticmethod
+    def _fine_tune_embeddings(variables: Dict[str, torch.Tensor], n_imgs: int) -> torch.Tensor:
+        return torch.cat([variables["pre_expr"].expand(n_imgs, -1), variables["expr"],
+                          variables["post_expr"].expand(n_imgs, -1)], dim=1)
+
+    def _get_fine_tune_step(self, force_neutral: bool, n_imgs: int) -> FineTuneStep:
+        """``step(generator, variables, optimizer, images) -> (losses, out)``:
+        the fine-tune loss (second_stage.py:797-852) and one Adam step on
+        the gradient with respect to the optimised tensors only.  Cached per
+        (force_neutral, n_imgs), as the JAX package caches its compiled step."""
+        cache_key = (force_neutral, n_imgs)
+        if cache_key in self._fine_tune_step_cache:
+            return self._fine_tune_step_cache[cache_key]
+        cfg = self.config
+        w_img = cfg["image_loss_weight"]
+        w_dom = cfg["domain_adverserial_loss_weight"]
+        w_rot = cfg["latent_regressor_rot_weight"]
+        w_reg = cfg["latent_regression_weight"]
+
+        def step(generator, variables, optimizer, images):
+            embeddings = self._fine_tune_embeddings(variables, n_imgs)
+            out = generator(embeddings, variables["rotations"])
+            losses: Dict[str, torch.Tensor] = {}
+            losses["image_loss_real"] = 0.5 * w_img * self.perceptual_loss.loss_fn(images, out)
+            losses["face_reco_loss"] = 0.5 * w_img * self.perceptual_loss_face_reco.loss_fn(out, images)
+            for i, head in enumerate(self.discriminator(out).values()):
+                losses[f"GAN_loss_real_{i}"] = gan_g_loss(head)
+            losses["latent_GAN_loss"] = w_dom * gan_d_loss(1.0, self.latent_discriminator(embeddings))
+            labels = torch.cat([embeddings, w_rot * variables["rotations"]], dim=-1)
+            losses["latent_regression_loss"] = normalized_latent_regression_loss(
+                self.latent_regressor(out), labels, w_reg)
+            losses["loss_sum"] = sum(losses.values())
+
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            grads = torch.autograd.grad(losses["loss_sum"], params, allow_unused=True,
+                                        materialize_grads=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return {k: v.detach() for k, v in losses.items()}, out.detach()
+
+        self._fine_tune_step_cache[cache_key] = step
+        return step

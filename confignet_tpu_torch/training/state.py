@@ -30,6 +30,12 @@ def make_adam(params: Iterable[torch.nn.Parameter], optimizer_config: Dict[str, 
         betas=(optimizer_config.get("beta_1", 0.0), optimizer_config.get("beta_2", 0.9)), eps=1e-7)
 
 
+def make_fine_tune_adam(params: Iterable[torch.Tensor]) -> torch.optim.Adam:
+    """The one-shot fine-tune's Adam (second_stage.py:714): lr 1e-4, betas
+    (0.9, 0.999), eps 1e-7 -- not the players' betas (0, 0.9)."""
+    return torch.optim.Adam(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-7)
+
+
 @torch.no_grad()
 def ema_update(ema: torch.nn.Module, current: torch.nn.Module, alpha: float = 0.999) -> None:
     """ema <- alpha * ema + (1 - alpha) * current, in place

@@ -110,6 +110,8 @@ ADAIN_SHAPES = [(4, 8, 8, 8, 256), (4, 64, 64, 32), (2, 256, 256, 16), (3, 5, 7,
 # the six 256px sites as (B, P, C) at a small batch
 ADAIN_SITES_256 = [(3, 512, 256), (3, 4096, 128), (3, 256, 256), (3, 1024, 64), (3, 4096, 32),
                    (3, 16384, 32)]
+# the same sites at the one-shot fine-tune's batch of one photo
+ADAIN_SITES_256_B1 = [(1,) + site[1:] for site in ADAIN_SITES_256]
 
 
 def adain_inputs(shape, dtype, device, seed):
@@ -144,7 +146,7 @@ def test_adain_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256)
+@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1)
 def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
     """The route adain_route picks and the two-pass route forced on the same
     shape; (2, 256, 256, 16) in float32 takes the two-pass route by itself."""
@@ -155,7 +157,7 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
     picked = adain_route(batch, positions, channels, dtype, smem, sms)
     if shape == (2, 256, 256, 16) and dtype == torch.float32:
         assert picked.route == "two_pass"
-    if shape in ADAIN_SITES_256:
+    if shape in ADAIN_SITES_256 + ADAIN_SITES_256_B1:
         assert picked.route == "one_pass"
     want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
     for plan in (picked, adain_two_pass_plan(batch, positions, channels, dtype, sms)):
@@ -166,7 +168,7 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SHAPES)
+@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES)
 def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
     """The backward kernel on its own route and on the forced two-pass route
     against its plain version on the same saved statistics; two launches

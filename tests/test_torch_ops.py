@@ -192,11 +192,11 @@ def test_adain_backward_plain_mixed_dtypes_match_jax(cotangent):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_adain_route_takes_one_pass_at_256px(dtype, backward):
     """Under an H100's 227 KB of opt-in shared memory per block and 132 SMs,
-    every 256px AdaIN site at the main path's batches takes the one-pass
-    cluster route, within the card's limits; the 512px float32 site does
-    not fit a cluster and takes two passes."""
+    every 256px AdaIN site at the main path's batches (the fine-tune's 1
+    too) takes the one-pass cluster route, within the card's limits; the
+    512px float32 site does not fit a cluster and takes two passes."""
     sites = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
-    for batch in (12, 24, 32, 256):
+    for batch in (1, 12, 24, 32, 256):
         for positions, channels in sites:
             plan = adain_route(batch, positions, channels, dtype, 232448, 132, backward)
             assert plan.route == "one_pass", (batch, positions, channels, plan)
