@@ -51,12 +51,12 @@
    rounding exceeds that, within 4x the distance of a one-site rounding probe
    (see compare_train_paths).
 8. Trains the stage-2 model (ConfigNet: the encoder joins the generator
-   player, VGGFace loss) at the same width and batch, its encoder heads given
-   weights: float32 and bfloat16, one warm-up and 3 timed steps each, with
-   the stage-1 step's launch counts, finite losses, a nonzero gradient for
-   every generator-player parameter (the encoder's included) and a moving
-   EMA.  Then one float32 step of the kernel path and of the plain path,
-   bounded as in step 7.
+   player; its VGGFace loss is the fine-tune's, not the step's) at the same
+   width and batch, its encoder heads given weights: float32 and bfloat16,
+   one warm-up and 3 timed steps each, with the stage-1 step's launch
+   counts, finite losses, a nonzero gradient for every generator-player
+   parameter (the encoder's included) and a moving EMA.  Then one float32
+   step of the kernel path and of the plain path, bounded as in step 7.
 9. Fine-tunes the full-width serving model (heads given weights) on one
    seeded photo with fine_tune_on_img: float32, then bfloat16, one warm call
    of 1 iteration and a timed call of 50, each iteration with exactly 0
@@ -73,7 +73,21 @@
    one-site rounding probe along the trajectory; then both render the
    trajectory's end within a mean abs uint8 difference of 1.0 (see
    compare_fine_tune_paths).
-11. Prints the kernels' JSON record (launches per path, and times on the
+11. The sampling path, at full width: saves the float32 serving model (heads
+   given weights, seeded Gaussian face-model distributions) with save() and
+   reloads it with load_confignet(), every weight tree equal bit for bit and
+   32 renders identical; trains a LatentGAN(latent_dim=145) at batch 32 on the
+   embeddings of 64 seeded photos (extract_embeddings; one warm-up and
+   LATENT_GAN_STEPS timed steps, finite losses, a generator that moved,
+   steps/s printed) and round-trips it (generate_latents_smoothed equal bit
+   for bit); times ConfigNetServer(model, latent_gan, chunk=32).sample(256,
+   truncation=0.7) in bfloat16, warm, with the counters zeroed just before
+   and read just after: exactly 8 rotation-forward and 48 AdaIN-forward
+   launches, no transpose or AdaIN backward; renders 32 sampled face-model
+   parameter sets with generate_images_from_facemodel (1 and 6 launches);
+   and renders 32 sampled latents with the kernels and with the plain path
+   in float32, within a mean abs uint8 difference of 1.0.
+12. Prints the kernels' JSON record (launches per path, and times on the
    float32 train step's path), then as the last line {"ok": true, "device":
    {...}}.
 
@@ -85,8 +99,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,7 +110,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from confignet_tpu_torch.core.model_io import load_confignet
 from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
+from confignet_tpu_torch.data.distributions import fit_distribution
 from confignet_tpu_torch.models import generator as generator_module
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
 from confignet_tpu_torch.ops import cuda_build
@@ -107,6 +125,7 @@ from confignet_tpu_torch.ops.rotate_cuda import (
     rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan, transpose_shared_bytes)
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+from confignet_tpu_torch.training.latent_gan import LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -121,6 +140,8 @@ TRAIN_BATCH = 24  # the D updates' generator batch; the G step renders two halve
 TRAIN_STEPS = 3
 FINE_TUNE_ITERS = 50  # bench_train.py's fine-tune flow: one photo, 50 iterations
 FINE_TUNE_COMPARE_ITERS = 5
+SAMPLE_N = 256  # ConfigNetServer.sample's request: 8 chunks of 32
+LATENT_GAN_STEPS = 20
 # bench_train.py's reference-scale stage-1 config (the reference's defaults at
 # 256px, 5 discriminator layers, the 145-dim latent layout), copied here
 TRAIN_CONFIG = {
@@ -555,6 +576,8 @@ TRAIN_STEP_LAUNCHES = (4, 2, 24, 12)
 # per fine-tune iteration: the gather resample (no rotation kernel), AdaIN
 # forward and backward at the 6 sites, batch 1
 FINE_TUNE_ITER_LAUNCHES = (0, 0, 6, 6)
+# per generator chunk of 32 at inference: one resample, six AdaIN sites
+CHUNK_LAUNCHES = (1, 0, 6, 0)
 
 
 def launch_counts():
@@ -959,6 +982,183 @@ def compare_fine_tune_paths(model_k, photo) -> dict:
                 bounds=bounds)
 
 
+def counted(fn, expected, label: str):
+    """fn() with the launch counters zeroed just before and read just after;
+    they must equal ``expected``.  Returns (fn's result, the counters)."""
+    zero_launch_counts()
+    out = fn()
+    launches = launch_counts()
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {launches}, expected {expected}")
+    return out, launches
+
+
+def check_renders(imgs, n: int, label: str) -> None:
+    if imgs.shape != (n, 256, 256, 3) or imgs.dtype != np.uint8:
+        raise AssertionError(f"{label} gave {imgs.shape} {imgs.dtype}")
+    if imgs.std() == 0 or np.all(imgs[0] == imgs[1]):
+        raise AssertionError(f"{label} gave constant images")
+
+
+def round_trip_confignet(model, directory: str):
+    """save() then load_confignet(): every weight tree equal bit for bit,
+    the log and the distributions' draws equal, and 32 renders identical."""
+    t0 = time.perf_counter()
+    model.save(directory, "confignet")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_confignet(os.path.join(directory, "confignet.json"))
+    load_s = time.perf_counter() - t0
+    if type(loaded) is not ConfigNet or loaded.device != model.device:
+        raise AssertionError(f"load_confignet gave a {type(loaded).__name__} on {loaded.device}")
+    saved, back = model.get_weights(), loaded.get_weights()
+    unequal = [f"{tree}/{key}" for tree, leaves in saved.items() for key, value in leaves.items()
+               if not np.array_equal(value, back[tree][key])]
+    if set(saved) != set(back) or any(set(saved[t]) != set(back[t]) for t in saved) or unequal:
+        raise AssertionError(f"the reloaded weights differ: {unequal[:10]}")
+    if loaded.get_log_dict() != model.get_log_dict():
+        raise AssertionError("the reloaded log differs")
+    draws = []
+    for m in (model, loaded):
+        np.random.seed(1)
+        draws.append(b"".join(p.tobytes() for p in m.sample_facemodel_params(4)))
+    np.random.seed(2)
+    latents = np.random.normal(size=(SERVE_CHUNK, model.config["latent_dim"])).astype(np.float32)
+    rotations = model.sample_rotations(SERVE_CHUNK)
+    same_renders = np.array_equal(model.generate_images(latents, rotations),
+                                  loaded.generate_images(latents, rotations))
+    if draws[0] != draws[1] or not same_renders:
+        raise AssertionError(f"the reloaded model differs: distributions {draws[0] == draws[1]}, "
+                             f"renders {same_renders}")
+    n_leaves = sum(len(leaves) for leaves in saved.values())
+    print(f"sample: saved the float32 serving model in {save_s:.2f} s and reloaded it in "
+          f"{load_s:.2f} s; all {n_leaves} leaves of {len(saved)} trees equal bit for bit, the "
+          f"log and distributions equal, {SERVE_CHUNK} renders identical", flush=True)
+    return loaded, dict(save_s=save_s, load_s=load_s, leaves=n_leaves, trees=len(saved))
+
+
+def latent_gan_run(confignet, dataset, directory: str, card: str, kind: str,
+                   profile_path=None):
+    """A LatentGAN(latent_dim=145) with the default config (batch 32) on the
+    embeddings of ``dataset.imgs``: one warm-up and LATENT_GAN_STEPS timed steps
+    (finite losses with the JAX package's keys, a generator that moved), then
+    save() / LatentGAN.load() with generate_latents_smoothed equal bit for
+    bit; with ``profile_path``, one more step profiled.  Returns (the GAN,
+    the run's record)."""
+    gan = LatentGAN({"latent_dim": confignet.config["latent_dim"]})
+    t0 = time.perf_counter()
+    embeddings = gan.extract_embeddings(confignet, dataset)
+    embed_s = time.perf_counter() - t0
+    if not np.isfinite(embeddings).all() or embeddings[:, 0].std() == 0:
+        raise AssertionError("extract_embeddings gave non-finite or equal embeddings")
+    real = torch.from_numpy(embeddings).to(gan.device)
+    idx = np.random.default_rng(3).integers(0, len(embeddings), (LATENT_GAN_STEPS + 1, 32))
+    batches = [real[torch.from_numpy(i).to(gan.device)] for i in idx]
+    before = gan.get_weights()["generator"]
+    step = gan._build_train_step()
+    check_finite(step(batches[0]), "latent GAN")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_losses = [step(batch) for batch in batches[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for losses in all_losses:
+        check_finite(losses, "latent GAN")
+    keys = set(all_losses[-1]["d"])
+    if keys != {"GAN_loss_real", "GAN_loss_fake", "gp_loss", "loss_sum"}:
+        raise AssertionError(f"latent GAN D losses {sorted(keys)}")
+    after = gan.get_weights()["generator"]
+    if all(np.array_equal(after[k], v) for k, v in before.items()):
+        raise AssertionError("the latent GAN's generator did not move")
+
+    gan.save(directory, "latent_gan")
+    loaded = LatentGAN.load(os.path.join(directory, "latent_gan.json"))
+    noise = np.random.default_rng(4).normal(size=(SAMPLE_N, gan.config["latent_dim"]))
+    if not np.array_equal(loaded.generate_latents_smoothed(noise), gan.generate_latents_smoothed(noise)):
+        raise AssertionError("the reloaded latent GAN samples other latents")
+    last = {g: {k: float(v) for k, v in d.items()} for g, d in all_losses[-1].items()}
+    rec = dict(steps=LATENT_GAN_STEPS, batch=gan.config["batch_size"], seconds=seconds,
+               steps_per_s=LATENT_GAN_STEPS / seconds, extract_embeddings_s=embed_s,
+               last_losses=last)
+    print(f"sample: latent GAN {LATENT_GAN_STEPS} steps of {rec['batch']} in {seconds * 1e3:.1f} ms "
+          f"= {rec['steps_per_s']:.1f} steps/s on {kind} ({card}); embeddings of {len(embeddings)} photos "
+          f"in {embed_s:.2f} s; loss_sum d {last['d']['loss_sum']:.4f} g {last['g']['loss_sum']:.4f}; "
+          f"save/load: generate_latents_smoothed equal bit for bit", flush=True)
+    if profile_path:
+        profile(f"latent GAN step (batch {rec['batch']})", lambda: step(batches[0]), profile_path)
+    return gan, rec
+
+
+def sampling_path(card: str, kind: str, profile_stem=None):
+    """Step 11: checkpoint files, the LatentGAN and photo-free sampling at
+    full width; with ``profile_stem``, a LatentGAN step and one sampled
+    chunk are profiled into ``<profile_stem>_latent_gan.txt`` and
+    ``_sample.txt``.  Returns (the sample call's launch counters, the
+    record)."""
+    dataset = FakeDataset(64, 256, {}, seed=11)
+    rng = np.random.default_rng(11)
+    model = ConfigNet(serving_config("float32"))
+    give_encoder_heads_weights(model, dataset.imgs[:SERVE_CHUNK])
+    model.facemodel_param_distributions = {
+        name: fit_distribution(rng.normal(size=(256, dims[0])), "GMM")
+        for name, dims in model.config["facemodel_inputs"].items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as directory:
+        loaded, files = round_trip_confignet(model, directory)
+        del model
+        gan, gan_rec = latent_gan_run(loaded, dataset, directory, card, kind,
+                                      profile_stem and profile_stem + "_latent_gan.txt")
+
+    # photo-free sampling, bfloat16, warm
+    model16 = ConfigNet(serving_config("bfloat16"), initialize=False)
+    model16.set_weights(loaded.get_weights())
+    server = ConfigNetServer(model16, gan, chunk=SERVE_CHUNK)
+    rotations = model16.sample_rotations(SAMPLE_N)
+    chunks = SAMPLE_N // SERVE_CHUNK
+    expected = tuple(chunks * n for n in CHUNK_LAUNCHES)
+    t0 = time.perf_counter()
+    counted(lambda: server.sample(SAMPLE_N, rotations=rotations, truncation=0.7), expected,
+            "sample (cold)")
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imgs, launches = counted(lambda: server.sample(SAMPLE_N, rotations=rotations, truncation=0.7),
+                             expected, "sample")
+    seconds = time.perf_counter() - t0
+    check_renders(imgs, SAMPLE_N, "sample")
+    print(f"sample: {SAMPLE_N} images in {seconds * 1e3:.1f} ms = {SAMPLE_N / seconds:.1f} img/s "
+          f"(warm; cold {SAMPLE_N / cold_s:.1f}) at 256px bfloat16, chunk {SERVE_CHUNK}, "
+          f"truncation 0.7 on {kind} ({card}); launches {launches}", flush=True)
+    if profile_stem:
+        profile(f"sample chunk {SERVE_CHUNK} (bfloat16)", lambda: server.sample(
+            SERVE_CHUNK, rotations=rotations[:SERVE_CHUNK], truncation=0.7), profile_stem + "_sample.txt")
+    del server, model16
+
+    # face-model parameters -> synthetic encoder -> generator, float32
+    facemodel_imgs, _ = counted(lambda: loaded.generate_images_from_facemodel(
+        loaded.sample_facemodel_params(SERVE_CHUNK), rotations[:SERVE_CHUNK]), CHUNK_LAUNCHES,
+        "generate_images_from_facemodel")
+    check_renders(facemodel_imgs, SERVE_CHUNK, "generate_images_from_facemodel")
+
+    # the same sampled latents through the kernels and the plain path, float32
+    latents = gan.generate_latents(SERVE_CHUNK, truncation=0.7)
+    plain = ConfigNet(serving_config("float32", rotation_resample="gather", adain_impl="plain"),
+                      initialize=False)
+    plain.set_weights(loaded.get_weights())
+    out_p, _ = counted(lambda: plain.generate_images(latents, rotations[:SERVE_CHUNK]),
+                       (0, 0, 0, 0), "sample plain path")
+    out_k, _ = counted(lambda: loaded.generate_images(latents, rotations[:SERVE_CHUNK]),
+                       CHUNK_LAUNCHES, "sample kernel path")
+    diff = np.abs(out_k.astype(int) - out_p.astype(int))
+    e2e = float(diff.mean())
+    print(f"sample float32 kernel vs plain path: mean abs uint8 difference {e2e:.4f} (max "
+          f"{int(diff.max())}), bound 1.0", flush=True)
+    if not e2e < 1.0 or out_k.std() == 0:
+        raise AssertionError(f"sampled renders: kernel path and plain path disagree: {e2e}")
+    rec = dict(files=files, latent_gan=gan_rec, images=SAMPLE_N, seconds=seconds,
+               img_per_s=SAMPLE_N / seconds, cold_img_per_s=SAMPLE_N / cold_s,
+               launches=dict(zip(LAUNCH_NAMES, launches)), e2e_mean_abs_uint8=e2e)
+    return launches, rec
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -996,8 +1196,9 @@ def main() -> int:
     parser.add_argument("--profile", help="also profile one warm generate chunk of the bf16 "
                         "server with torch.profiler and write its kernel table here (and, beside "
                         "it, one float32 train step's of each stage, as <stem>_train.txt and "
-                        "<stem>_train2.txt, and a float32 fine-tune of 10 iterations, as "
-                        "<stem>_fine_tune.txt)")
+                        "<stem>_train2.txt, a float32 fine-tune of 10 iterations, as "
+                        "<stem>_fine_tune.txt, one LatentGAN step, as <stem>_latent_gan.txt, and "
+                        "one sampled chunk, as <stem>_sample.txt)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -1100,11 +1301,7 @@ def main() -> int:
     if lat[:, 0].std() == 0 or rot[:, 0].std() == 0:
         raise AssertionError("encode gave the same latent for every photo")
     for name, n in (("render_with_attribute", 40), ("generate", 256)):
-        imgs = results[name]
-        if imgs.shape != (n, 256, 256, 3) or imgs.dtype != np.uint8:
-            raise AssertionError(f"{name} gave {imgs.shape} {imgs.dtype}")
-        if imgs.std() == 0 or np.all(imgs[0] == imgs[1]):
-            raise AssertionError(f"{name} gave constant images")
+        check_renders(results[name], n, name)
     del server, model, results
     torch.cuda.empty_cache()
 
@@ -1213,7 +1410,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # -- 11. records -----------------------------------------------------------------
+    # -- 11. the sampling path: checkpoint files, LatentGAN, photo-free samples --------
+    profile_stem = args.profile and str(Path(args.profile).with_name(Path(args.profile).stem))
+    path_launches["sample"], sampling = sampling_path(card, kind, profile_stem)
+    torch.cuda.empty_cache()
+
+    # -- 12. records -----------------------------------------------------------------
     def times(phase_counts, dtype="float32"):
         """The phases at a path's shapes, each counted as often as the path
         launches it: error, times and bound of the path's launches."""
@@ -1259,12 +1461,13 @@ def main() -> int:
               "confignet_tpu/ops/adain_pallas.py:87", 3,
               {("adain_backward_cuda", half): 2}),
     ]
-    # the kernels each path runs: serving renders only; the fine-tune
-    # resamples with the gather form
+    # the kernels each path runs: serving and sampling render only; the
+    # fine-tune resamples with the gather form
     on_path = {"serve": {"rotate_cuda", "adain_cuda"},
                "train_stage1": {item["name"] for item in kernels},
                "train_stage2": {item["name"] for item in kernels},
-               "fine_tune": {"adain_cuda", "adain_backward_cuda"}}
+               "fine_tune": {"adain_cuda", "adain_backward_cuda"},
+               "sample": {"rotate_cuda", "adain_cuda"}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -1278,6 +1481,7 @@ def main() -> int:
              "train": [train_f32, train_bf16], "train_paths": train_paths,
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
+             "sampling": sampling,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -1,7 +1,15 @@
-"""The weight bridge between the JAX package's checkpoint format and the
-port's modules (counterpart of ``confignet_tpu/core/model_io.py``).
+"""Checkpoint files and the weight bridge between the JAX package's
+checkpoint format and the port's modules (counterpart of
+``confignet_tpu/core/model_io.py``).
 
-The npz format keys every parameter ``<tree>/<flattened/pytree/path>``.
+A checkpoint is the JAX package's set of files, so either package reads
+what the other writes:
+
+- ``<name>.json``: the merged config, with ``model_type``;
+- ``<name>.npz``: every parameter, keyed ``<tree>/<flattened/pytree/path>``;
+- ``<name>_facemodel_distr.pck``: the sampling distributions (``core/pickles.py``);
+- ``<name>_log.json``: the loss and metric history.
+
 The port's module attributes carry the flax module names, so a pytree path
 maps onto a torch parameter name by turning ``/`` into ``.`` and ``kernel``
 into ``weight``; only the layout of kernels changes:
@@ -9,10 +17,18 @@ into ``weight``; only the layout of kernels changes:
 - Dense ``(in, out)`` -> ``(out, in)``;
 - Conv2D HWIO -> OIHW, Conv3D DHWIO -> OIDHW;
 - everything else (biases, norm parameters, ``learned_input``) as is.
+
+The JAX package's other weight formats are not read: the orbax directory
+needs JAX's libraries, and a reference-release npz (Keras weight lists)
+needs the Keras-order importer, which is not ported yet (ROADMAP.md queue 1
+item 7).  Both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Tuple
+import glob
+import json
+import os
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,3 +121,92 @@ def export_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
     """Inverse of :func:`load_jax_params`: the model's parameters as float32
     numpy arrays in JAX layout under their pytree-path keys."""
     return export_jax_tensors(model.named_parameters())
+
+
+# ----------------------------------------------------------------------
+# Checkpoint files
+# ----------------------------------------------------------------------
+
+def save_model_weights(trees: Dict[str, Any], output_dir: str, output_filename: str) -> str:
+    """Write {tree: {pytree path: ndarray}} (or nested dicts) as
+    ``<output_filename>.npz`` under the JAX package's keys."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, output_filename + ".npz")
+    np.savez(path, **flatten_param_trees(trees))
+    return path
+
+
+def load_model_weights(npz_path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """An npz of either package -> {tree: {pytree path: ndarray}}, the form
+    ``get_weights`` returns and ``set_weights`` takes."""
+    trees: Dict[str, Dict[str, np.ndarray]] = {}
+    with np.load(npz_path, allow_pickle=False) as data:
+        for key in data.files:
+            tree_name, _, path = key.partition("/")
+            trees.setdefault(tree_name, {})[path] = data[key]
+    return trees
+
+
+def npz_is_reference_format(npz_path: str) -> bool:
+    """True for a reference-release npz: Keras ``get_weights()`` lists keyed
+    ``<model>_weights`` instead of ``<tree>/<path>``.  Only the key listing
+    is read, so no pickle is executed."""
+    with np.load(npz_path, allow_pickle=False) as data:
+        files = list(data.files)
+    return bool(files) and all(k.endswith("_weights") for k in files)
+
+
+def check_not_reference_format(npz_path: str) -> None:
+    if npz_is_reference_format(npz_path):
+        raise NotImplementedError(f"{npz_path} is a reference-release checkpoint (Keras weight "
+                                  "lists); importing those is not ported yet (ROADMAP.md queue 1 "
+                                  "item 7)")
+
+
+def save_weights_orbax(trees: Dict[str, Any], checkpoint_dir: str) -> None:
+    raise NotImplementedError("the orbax checkpoint format needs JAX's libraries; the port writes "
+                              "npz (checkpoint_format='npz')")
+
+
+def load_weights_orbax(checkpoint_dir: str) -> Dict[str, Any]:
+    raise NotImplementedError(f"{checkpoint_dir} is an orbax checkpoint, which needs JAX's "
+                              "libraries; re-save it as npz with the JAX package")
+
+
+def attempt_reloading_checkpoint(output_dir: str, dnn_loader: Optional[Callable] = None):
+    """Preemption recovery: load the newest checkpoint json (by name; not a
+    ``_log.json``) from ``<output_dir>/checkpoints``, else from
+    ``$PT_PREV_OUTPUT_DIR/checkpoints``; None when neither has one."""
+    if dnn_loader is None:
+        dnn_loader = load_confignet
+    candidate_dirs = [os.path.join(output_dir, "checkpoints")]
+    if "PT_PREV_OUTPUT_DIR" in os.environ:
+        candidate_dirs.append(os.path.join(os.environ["PT_PREV_OUTPUT_DIR"], "checkpoints"))
+
+    print("Attempting to restart job from checkpoint. Potential checkpoint dirs are:")
+    for candidate in candidate_dirs:
+        print(candidate)
+    for checkpoint_dir in candidate_dirs:
+        checkpoint_files = sorted(path for path in glob.glob(os.path.join(checkpoint_dir, "*.json"))
+                                  if not path.endswith("_log.json"))
+        if checkpoint_files:
+            print("Found loadable checkpoint")
+            return dnn_loader(checkpoint_files[-1])
+    return None
+
+
+def load_confignet(model_path: str, device: Optional[Union[str, torch.device]] = None):
+    """Load a checkpoint that either package wrote (``ConfigNetFirstStage``,
+    ``ConfigNet`` or ``LatentGAN``), by the ``model_type`` of its json, on
+    ``device`` (the GPU unless given)."""
+    with open(model_path, "r") as fp:
+        model_type = json.load(fp)["model_type"]
+    if model_type == "ConfigNetFirstStage":
+        from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage as model_cls
+    elif model_type == "ConfigNet":
+        from confignet_tpu_torch.training.second_stage import ConfigNet as model_cls
+    elif model_type == "LatentGAN":
+        from confignet_tpu_torch.training.latent_gan import LatentGAN as model_cls
+    else:
+        raise ValueError(f"unknown model_type {model_type!r} in {model_path}")
+    return model_cls.load(model_path, device=device)

@@ -32,6 +32,26 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.3) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
 
 
+class LeakyReLUUnitGradAtZero(torch.autograd.Function):
+    """``F.leaky_relu`` whose gradient at exactly 0 is 1, as
+    ``jax.nn.leaky_relu``'s (``F.leaky_relu``'s is the slope there).  An MLP
+    meets exact zeros when a zero input reaches a zero-initialised bias, as
+    the expression inversion's first step does.  The forward is the one
+    ``F.leaky_relu`` kernel; the backward is built of differentiable ops, so
+    the R1 penalty can differentiate it again."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.negative_slope = negative_slope
+        return F.leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, grad * ctx.negative_slope), None
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: kernel (in, out) there, (out, in) here."""
 
@@ -94,7 +114,7 @@ class MLP(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.num_layers - 1:
-                x = leaky_relu(x, self.negative_slope)
+                x = LeakyReLUUnitGradAtZero.apply(x, self.negative_slope)
         return x
 
 

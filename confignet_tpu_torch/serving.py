@@ -18,8 +18,9 @@ from confignet_tpu_torch.core.device import resolve_device
 
 
 class ConfigNetServer:
-    """Serving front-end over a ConfigNet (and optionally a LatentGAN, whose
-    port comes with a later slice).
+    """Serving front-end over a ConfigNet and, optionally, a LatentGAN
+    (``training/latent_gan.py``) whose EMA generator samples the latents of
+    :meth:`sample`, so faces render without a photo.
 
     ``chunk`` is the device batch: every request is cut into chunks of this
     size, the last one padded by repeating its last row.
@@ -145,7 +146,9 @@ class ConfigNetServer:
 
     def sample(self, n: int, rotations: Optional[np.ndarray] = None,
                truncation: float = 1.0) -> np.ndarray:
-        """Photo-free sampling through the LatentGAN prior."""
+        """Photo-free sampling: ``n`` latents from the LatentGAN (its input
+        noise from the global np.random, scaled by ``truncation``), rendered
+        at ``rotations`` (zero pose when None) -> uint8 images."""
         if self.latent_gan is None:
             raise ValueError("ConfigNetServer was built without a LatentGAN")
         latents = self.latent_gan.generate_latents(n, truncation=truncation)

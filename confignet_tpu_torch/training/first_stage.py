@@ -3,9 +3,10 @@
 Holds the configuration schema, the face-model input bookkeeping, the seven
 parameter trees of the JAX checkpoint (``WEIGHT_TREES``), one Adam per
 player and the fused stage-1 training step (:meth:`_build_train_step`), plus
-the latent-manipulation and image-generation API.  The ``train()`` loop with
-its checkpoints, metrics, logging and prefetch thread comes with the
-infrastructure slice.
+the checkpoint files (:meth:`save`, :meth:`load`: the JAX package's json,
+npz, distribution pickle and log), the host-side sampling helpers, the
+latent-manipulation API and image generation.  The ``train()`` loop with its
+metrics, logging and prefetch thread comes with the infrastructure slice.
 
 The step copies the JAX step's order: (a) the image-D update on hflipped
 real images against ``G(z, rot)`` from the pre-step generator, computed
@@ -24,6 +25,8 @@ from ``config["seed"]``, through three methods a caller may override
 from __future__ import annotations
 
 import copy
+import json
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -33,7 +36,10 @@ from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.images import batched_hflip
-from confignet_tpu_torch.core.model_io import export_jax_params, export_jax_tensors, load_jax_params
+from confignet_tpu_torch.core.model_io import (
+    check_not_reference_format, export_jax_params, export_jax_tensors, load_jax_params,
+    load_model_weights, load_weights_orbax, save_model_weights, save_weights_orbax)
+from confignet_tpu_torch.core.pickles import read_pickle, write_pickle
 from confignet_tpu_torch.losses.gan import (
     compute_discriminator_loss, compute_latent_discriminator_loss, eye_loss, gan_g_loss,
     latent_regression_loss)
@@ -119,6 +125,21 @@ PLAYER_TREES: Dict[str, Tuple[str, ...]] = {
 
 Batch = Dict[str, Any]
 
+# rotation_resample values that only the JAX package knows (its TPU
+# lowerings and its matmul form, confignet_tpu/models/generator.py:45-77,
+# 109); a JAX config carrying one loads with the port's automatic choice
+_JAX_ONLY_RESAMPLE = ("pallas", "pallas_fused", "zdecomp", "matmul")
+
+
+def _port_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """A saved config with the JAX-only ``rotation_resample`` and
+    ``rotation_resample_train`` values replaced by "auto" and "auto_train"."""
+    config = dict(config)
+    for key, auto in (("rotation_resample", "auto"), ("rotation_resample_train", "auto_train")):
+        if config.get(key) in _JAX_ONLY_RESAMPLE:
+            config[key] = auto
+    return config
+
 
 def uint8_from_unit_range(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] images -> uint8: (x + 1) * 127.5, clipped, truncated."""
@@ -160,6 +181,10 @@ class ConfigNetFirstStage:
         # shift the batch order.
         self._batch_rng = np.random.RandomState(np.random.randint(0, 2**31))
         self._fine_tuned_generator_params = None
+        self.g_losses: Dict[str, List[float]] = {}
+        self.d_losses: Dict[str, List[float]] = {}
+        self.metrics: Dict[str, List] = {}
+        self.facemodel_param_distributions = None
         self._build_modules()
         if initialize:
             self.initialize_network()
@@ -170,6 +195,22 @@ class ConfigNetFirstStage:
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
         return torch.bfloat16 if self.config.get("compute_dtype") == "bfloat16" else None
+
+    @property
+    def _fine_tuned_generator_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The fine-tuned generator's state_dict, or None to render with the
+        EMA generator.  Setting it builds, once, the inference generator that
+        carries those weights (:meth:`_inference_generator`)."""
+        return self._fine_tuned_state
+
+    @_fine_tuned_generator_params.setter
+    def _fine_tuned_generator_params(self, state: Optional[Dict[str, torch.Tensor]]) -> None:
+        self._fine_tuned_state = state
+        self._fine_tuned_generator = None
+        if state is not None:
+            generator = copy.deepcopy(self.generator_smoothed)
+            generator.load_state_dict(state)
+            self._fine_tuned_generator = generator
 
     @property
     def facemodel_inputs_tuple(self) -> Tuple:
@@ -272,6 +313,86 @@ class ConfigNetFirstStage:
                     for name, p in getattr(self, tree).named_parameters())
                 for tree in trees}
         return moments
+
+    # ------------------------------------------------------------------
+    # Log state and checkpoint files (first_stage.py:685-709, 1275-1359)
+    # ------------------------------------------------------------------
+
+    def get_training_step_number(self) -> int:
+        return 0 if "loss_sum" not in self.g_losses else len(self.g_losses["loss_sum"]) - 1
+
+    def get_resume_step(self) -> int:
+        """The first step a resumed run takes: the count of completed steps
+        in the loss history."""
+        return 0 if "loss_sum" not in self.g_losses else len(self.g_losses["loss_sum"])
+
+    def get_batch_size(self) -> int:
+        return self.config["batch_size"]
+
+    def get_log_dict(self) -> Dict[str, Any]:
+        return {"g_losses": self.g_losses, "d_losses": self.d_losses, "metrics": self.metrics}
+
+    def set_logs(self, log_dict: Dict[str, Any]) -> None:
+        self.g_losses = log_dict["g_losses"]
+        self.d_losses = log_dict["d_losses"]
+        self.metrics = log_dict["metrics"]
+
+    def save(self, output_dir: str, output_filename: str) -> None:
+        """Write ``<output_filename>.json``, ``.npz``,
+        ``_facemodel_distr.pck`` and ``_log.json`` under ``output_dir``, as
+        the JAX package writes them."""
+        self._write_checkpoint_files(self.get_weights(), self.get_log_dict(), output_dir,
+                                     output_filename)
+
+    def _write_checkpoint_files(self, weights: Dict[str, Any], log_dict: Dict[str, Any],
+                                output_dir: str, output_filename: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        stem = os.path.join(output_dir, output_filename)
+        if self.config.get("checkpoint_format", "npz") == "orbax":
+            save_weights_orbax(weights, stem + ".orbax")
+        save_model_weights(weights, output_dir, output_filename)
+        with open(stem + ".json", "w") as fp:
+            json.dump(self._json_safe_config(), fp, indent=4)
+        write_pickle(self.facemodel_param_distributions, stem + "_facemodel_distr.pck")
+        with open(stem + "_log.json", "w") as fp:
+            json.dump(log_dict, fp)
+
+    def _json_safe_config(self) -> Dict[str, Any]:
+        def sanitize(obj):
+            if isinstance(obj, dict):
+                return {k: sanitize(v) for k, v in obj.items()}
+            if isinstance(obj, (tuple, list)):
+                return [sanitize(v) for v in obj]
+            if isinstance(obj, np.integer):
+                return int(obj)
+            if isinstance(obj, np.floating):
+                return float(obj)
+            return obj
+
+        return sanitize(self.config)
+
+    @classmethod
+    def load(cls, file_path: str, device: Optional[Union[str, torch.device]] = None):
+        """Load a checkpoint written by either package (the json's path) on
+        ``device``, with its log and distributions where present.  An orbax
+        directory and a reference-release npz raise NotImplementedError."""
+        stem = os.path.splitext(file_path)[0]
+        if not os.path.exists(stem + ".npz") and os.path.isdir(stem + ".orbax"):
+            load_weights_orbax(stem + ".orbax")
+        check_not_reference_format(stem + ".npz")
+        with open(file_path, "r") as fp:
+            config = json.load(fp)
+        model = cls(_port_config(config), device=device, initialize=False)
+        model.set_weights(load_model_weights(stem + ".npz"))
+
+        if os.path.exists(stem + "_log.json"):
+            with open(stem + "_log.json", "r") as fp:
+                model.set_logs(json.load(fp))
+        if os.path.exists(stem + "_facemodel_distr.pck"):
+            model.facemodel_param_distributions = read_pickle(stem + "_facemodel_distr.pck")
+        else:
+            print("WARNING: facemodel param distributions not loaded")
+        return model
 
     # ------------------------------------------------------------------
     # Random draws of the step (override to pin them)
@@ -501,6 +622,28 @@ class ConfigNetFirstStage:
         return batch
 
     # ------------------------------------------------------------------
+    # Host-side sampling helpers, from the global np.random as the JAX
+    # package's (the same seed gives the same bytes)
+    # ------------------------------------------------------------------
+
+    def sample_latent_vector(self, n_samples: int) -> np.ndarray:
+        if self.config["latent_distribution"] == "uniform":
+            return np.random.uniform(-1, 1, (n_samples, self.config["latent_dim"]))
+        return np.random.normal(0, 1, (n_samples, self.config["latent_dim"]))
+
+    def sample_rotations(self, n_samples: int, axes=(0, 1, 2)) -> np.ndarray:
+        """Uniform in the configured ranges (degrees), returned in radians."""
+        rotation = np.zeros((n_samples, 3), np.float32)
+        for axis in axes:
+            lo, hi = self.config["rotation_ranges"][axis]
+            rotation[:, axis] = np.pi * np.random.uniform(lo, hi, n_samples) / 180.0
+        return rotation
+
+    def sample_facemodel_params(self, n_samples: int) -> List[np.ndarray]:
+        return [self.facemodel_param_distributions[name].sample(n_samples)[0]
+                for name in self.config["facemodel_inputs"].keys()]
+
+    # ------------------------------------------------------------------
     # Latent manipulation API
     # ------------------------------------------------------------------
 
@@ -523,17 +666,45 @@ class ConfigNetFirstStage:
         new_latents[:, list(idxs)] = encoded.float().cpu().numpy().astype(new_latents.dtype)
         return new_latents
 
+    def fit_facemodel_expression_params_to_latent(
+            self, latent, unused_expr_idxs=None, param_name: str = "blendshape_values",
+            n_iters: int = 2000, learning_rate: float = 0.05, verbose: bool = False) -> np.ndarray:
+        """Invert one parameter's synthetic-encoder MLP by projected SGD on
+        the device: from zeros, ``n_iters`` steps on the mean squared error
+        to the latent slice, each clipped to [0, 1] with the
+        ``unused_expr_idxs`` held at 0 (first_stage.py:1080-1117; reference:
+        confignet_first_stage.py:646-680).  Returns (1, input_dim) float32."""
+        idxs = self.get_facemodel_param_idxs_in_latent(param_name)
+        target = torch.from_numpy(np.asarray(latent)[:, list(idxs)].astype(np.float32)).to(self.device)
+        input_dim = dict(self.config["facemodel_inputs"])[param_name][0]
+        mask = torch.ones((1, input_dim), device=self.device)
+        if unused_expr_idxs is not None:
+            mask[:, list(unused_expr_idxs)] = 0.0
+
+        def loss_of(values):
+            return (target - self.synthetic_encoder.encode_single_param(param_name, values)).square().mean()
+
+        values = torch.zeros((1, input_dim), device=self.device)
+        with torch.enable_grad():
+            for _ in range(n_iters):
+                values.requires_grad_(True)
+                (grad,) = torch.autograd.grad(loss_of(values), values)
+                values = torch.clamp(values.detach() - learning_rate * grad, 0.0, 1.0) * mask
+        if verbose:
+            with torch.no_grad():
+                print(f"fit_facemodel_expression_params_to_latent: final loss {float(loss_of(values)):f}")
+        return values.cpu().numpy()
+
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
 
     def _inference_generator(self) -> HologanGenerator:
-        """The EMA generator, or a copy carrying the fine-tuned weights."""
-        if self._fine_tuned_generator_params is None:
+        """The EMA generator, or the copy carrying the fine-tuned weights,
+        built when they were set."""
+        if self._fine_tuned_generator is None:
             return self.generator_smoothed
-        gen = copy.deepcopy(self.generator_smoothed)
-        gen.load_state_dict(self._fine_tuned_generator_params)
-        return gen
+        return self._fine_tuned_generator
 
     @torch.inference_mode()
     def generate_images(self, latent_vectors, rotations, batch_chunk: int = 32) -> np.ndarray:
@@ -558,3 +729,11 @@ class ConfigNetFirstStage:
         if not outputs:
             return np.zeros((0,), np.uint8)
         return np.concatenate(outputs, axis=0)
+
+    def generate_images_from_facemodel(self, facemodel_params, rotations) -> np.ndarray:
+        """Face-model parameters (one array per input, in config order) ->
+        synthetic-encoder latents -> uint8 images."""
+        with torch.inference_mode():
+            latents = self.synthetic_encoder(
+                [torch.from_numpy(np.asarray(p, np.float32)).to(self.device) for p in facemodel_params])
+        return self.generate_images(latents.float().cpu().numpy(), rotations)

@@ -3,8 +3,13 @@
 confignet/confignet_second_stage.py).  On top of the first stage:
 
 - the ResNet50 ``RealEncoder`` joins the generator player (generator, latent
-  regressor, synthetic encoder and encoder under one Adam), and a VGGFace
-  perceptual loss is added;
+  regressor, synthetic encoder and encoder under one Adam);
+- a VGGFace perceptual loss (``perceptual_loss_face_reco``) is built, which
+  only the fine-tune uses: the train step takes none, as the JAX package's
+  takes none (second_stage.py:162-244 passes its weights but never reads
+  them);
+- the checkpoint files (``save``, ``load``, inherited) carry the
+  ``real_encoder`` tree too, and ``ConfigNet.load`` returns a ``ConfigNet``;
 - the train step (:meth:`ConfigNet._build_train_step`) autoencodes real
   images: the image discriminator sees hflipped real images against
   ``G(E(real))``, the latent discriminator encoder latents against

@@ -15,7 +15,11 @@ VGGFace) on both sides.
   the fine-tuned generator are held within 2 * n_iters * lr of JAX's.  The
   encoder heads keep their zero initialisation here, so both packages start
   from the same encoding exactly.
+- After a fine-tune, ``generate_images`` builds no generator: two calls give
+  equal images with no ``copy.deepcopy`` or ``load_state_dict`` (counted).
 """
+import copy
+
 import numpy as np
 import optax
 import jax
@@ -155,6 +159,41 @@ def test_fine_tune_on_img_matches_jax(models):
         assert not np.array_equal(rendered, ema)
     finally:
         model._fine_tuned_generator_params = None
+
+
+def test_generate_images_builds_no_generator_after_a_fine_tune(models, monkeypatch):
+    """The fine-tuned inference generator is built once, when the weights
+    are set; each generate_images call reuses it."""
+    _, model = models
+    calls = []
+    deepcopy, load_state_dict = copy.deepcopy, torch.nn.Module.load_state_dict
+
+    def counting_deepcopy(*args, **kwargs):
+        calls.append("deepcopy")
+        return deepcopy(*args, **kwargs)
+
+    def counting_load_state_dict(self, *args, **kwargs):
+        calls.append("load_state_dict")
+        return load_state_dict(self, *args, **kwargs)
+
+    try:
+        embeddings, rotations = model.fine_tune_on_img(_photo(5), n_iters=1)
+        built = model._inference_generator()
+        assert built is not model.generator_smoothed
+        monkeypatch.setattr(copy, "deepcopy", counting_deepcopy)
+        monkeypatch.setattr(torch.nn.Module, "load_state_dict", counting_load_state_dict)
+        first = model.generate_images(embeddings, rotations)
+        second = model.generate_images(embeddings, rotations)
+        assert calls == []
+        np.testing.assert_array_equal(first, second)
+        assert model._inference_generator() is built
+        # assigning weights builds the generator once more
+        model._fine_tuned_generator_params = model._fine_tuned_generator_params
+        assert "deepcopy" in calls and calls.count("load_state_dict") == 1
+        assert model._inference_generator() is not built
+    finally:
+        model._fine_tuned_generator_params = None
+    assert model._inference_generator() is model.generator_smoothed
 
 
 def test_force_neutral_expression_keeps_the_neutral_encoding(models):

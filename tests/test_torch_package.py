@@ -25,7 +25,8 @@ def _imported_roots(path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / "confignet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "confignet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                     REPO / "chip_ab.py"]
     assert len(files) > 10
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -35,11 +36,30 @@ def test_port_sources_import_no_jax():
 def test_importing_the_port_leaves_jax_unloaded():
     # this pytest process has JAX loaded already (tests/conftest.py), so the
     # check runs in a fresh interpreter
-    code = ("import sys, confignet_tpu_torch.serving, confignet_tpu_torch.training.second_stage; "
+    code = ("import sys, confignet_tpu_torch.serving, confignet_tpu_torch.training.second_stage, "
+            "confignet_tpu_torch.training.latent_gan, confignet_tpu_torch.core.pickles; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                             text=True, timeout=300)
+    assert result.returncode == 0, result.stdout + result.stderr
+
+
+def test_distribution_pickle_round_trip_leaves_jax_unloaded(tmp_path):
+    """The port writes a pickle under the JAX package's class names and
+    reads it back in a fresh interpreter without loading either."""
+    code = ("import pickle, sys, numpy as np; "
+            "from confignet_tpu_torch.core.pickles import read_pickle, write_pickle; "
+            "from confignet_tpu_torch.data.distributions import fit_distribution; "
+            "d = {k: fit_distribution(np.random.default_rng(0).normal(size=(20, 3)), k) "
+            "for k in ('GMM', 'one_hot', 'exemplar')}; "
+            "write_pickle(d, sys.argv[1]); back = read_pickle(sys.argv[1]); "
+            "assert {k: type(v) for k, v in back.items()} == {k: type(v) for k, v in d.items()}; "
+            "assert b'confignet_tpu.data.distributions' in open(sys.argv[1], 'rb').read(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
+            "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
+    result = subprocess.run([sys.executable, "-c", code, str(tmp_path / "d.pck")], cwd=REPO,
+                            capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stdout + result.stderr
 
 

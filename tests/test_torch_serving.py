@@ -1,6 +1,7 @@
 """The port's ConfigNetServer against the JAX ConfigNetServer on the CPU,
 over ConfigNet(TINY_FIRST_STAGE_CONFIG) with the weights the JAX server
-snapshots copied into the port.  Bounds are those of tests/test_serving.py:
+snapshots copied into the port (and, for photo-free sampling, a LatentGAN
+with the JAX one's weights).  Bounds are those of tests/test_serving.py:
 latents rtol 2e-2 (the random ResNet trunk amplifies to ~1e5), rotations
 atol 1e-2, images a mean abs uint8 difference below 1.0."""
 import numpy as np
@@ -10,8 +11,10 @@ from flax import traverse_util
 
 from helpers import TINY_FIRST_STAGE_CONFIG
 from confignet_tpu.serving import ConfigNetServer as JaxServer
+from confignet_tpu.training.latent_gan import LatentGAN as JaxLatentGAN
 from confignet_tpu.training.second_stage import ConfigNet as JaxConfigNet
 from confignet_tpu_torch.serving import ConfigNetServer
+from confignet_tpu_torch.training.latent_gan import LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 torch.set_num_threads(1)
@@ -118,3 +121,27 @@ def test_sample_requires_latent_gan(servers):
     _, srv, _ = servers
     with pytest.raises(ValueError, match="LatentGAN"):
         srv.sample(2)
+
+
+def test_sample_matches_jax(servers):
+    """Photo-free sampling through each package's LatentGAN with equal
+    weights, after the same np.random.seed."""
+    jsrv, _, model = servers
+    latent_dim = model.config["latent_dim"]
+    jgan = JaxLatentGAN({"latent_dim": latent_dim})
+    gan = LatentGAN({"latent_dim": latent_dim}, device="cpu")
+    gan.set_weights({name: _flat(tree) for name, tree in jgan.get_weights().items()})
+    jsampler = JaxServer(jsrv.confignet, latent_gan=jgan, chunk=4)
+    sampler = ConfigNetServer(model, latent_gan=gan, chunk=4, device="cpu")
+
+    rotations = (np.random.default_rng(5).uniform(-1, 1, (5, 3))
+                 * [np.pi / 6, np.pi / 18, 0]).astype(np.float32)
+    for rot in (rotations, None):
+        np.random.seed(6)
+        out = sampler.sample(5, rotations=rot, truncation=0.7)
+        np.random.seed(6)
+        _close_images(out, jsampler.sample(5, rotations=rot, truncation=0.7))
+        assert out.shape == (5, 128, 128, 3) and out.std() > 0
+    np.random.seed(6)
+    latents = gan.generate_latents(5, truncation=0.7)
+    _close_images(out, model.generate_images(latents, np.zeros((5, 3), np.float32)))
