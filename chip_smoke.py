@@ -19,7 +19,10 @@
    adain_route picks (printed per site) and, for comparison, on the
    two-pass route; the rotation on the slab route rotate_plan picks
    (printed with its plan) and on route v1, the first kernel; each pair
-   timed in turns.  AdaIN also at B=1, the fine-tune's batch.
+   timed in turns.  Batches 32 (a serving chunk), 64 (a fused FID chunk)
+   and 256, both dtypes; the float32 train step's 12 and 24; and B=1, the
+   fine-tune's batch (AdaIN, both dtypes) and the tuned controllability
+   metric's renders (the rotation, float32).
 4. Serves requests at full width (256px, bf16, 145-dim latents, weights
    from seed 0) through ConfigNetServer(chunk=32): encode 40 photos,
    re-render them with a spliced attribute, generate 256 latents.  The
@@ -87,7 +90,28 @@
    parameter sets with generate_images_from_facemodel (1 and 6 launches);
    and renders 32 sampled latents with the kernels and with the plain path
    in float32, within a mean abs uint8 difference of 1.0.
-12. Prints the kernels' JSON record (launches per path, and times on the
+12. The evaluation path, at full width (the serving config with the beard
+   embedding's 9 PCA dims, seeded Gaussian face-model distributions; Inception
+   and MobileNetV2 at 256px): a NeuralRendererDataset of 1,000 seeded images
+   with labels for the classifier CLI's 38 CelebA attributes, saved and
+   reloaded (equal), its Inception features (bf16) timed; FID/KID as the
+   trainer scores them (InceptionMetrics over the dataset, then the fused
+   generator -> Inception features of 1,000 sampled latents in 16 chunks of
+   64, bf16, warm, exactly 16 rotation-forward and 96 AdaIN-forward launches,
+   finite KID and FID); in float32 the fused features of the kernel path and
+   the plain path, and the fused against get_features(generate_images(...)),
+   all through a float32 Inception, within 1e-3 relative L2; the attribute classifier (38 attributes,
+   batch 32, trainable BN) 1 warm-up and 10 timed train steps, BN
+   recalibration, 256 predictions timed, save/load with predictions equal bit
+   for bit; ControllabilityMetrics.get_metrics on 64 images in bf16 (exactly
+   34 rotation-forward and 204 AdaIN-forward launches, 8 configs, a finite
+   controllability); the float32 kernel and plain paths' renders within a mean
+   abs uint8 difference of 1.0, the same images scored identically through
+   either, every per-config value within 1e-3 (widened to 4x a one-site
+   rounding probe where the judge's outputs are that sensitive); and with
+   per_image_tuning_iters=10 on 2 images in float32 (exactly 34, 0, 324 and
+   120 launches).
+13. Prints the kernels' JSON record (launches per path, and times on the
    float32 train step's path), then as the last line {"ok": true, "device":
    {...}}.
 
@@ -98,6 +122,7 @@ package import fails).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -111,6 +136,7 @@ import torch
 import torch.nn.functional as F
 
 from confignet_tpu_torch.core.model_io import load_confignet
+from confignet_tpu_torch.data.dataset import NeuralRendererDataset
 from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
 from confignet_tpu_torch.data.distributions import fit_distribution
 from confignet_tpu_torch.models import generator as generator_module
@@ -123,6 +149,9 @@ from confignet_tpu_torch.ops.rotate_cuda import (
     device_limits as rotate_device_limits, forward_shared_bytes, launch_rotate_forward,
     launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
     rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan, transpose_shared_bytes)
+from confignet_tpu_torch.metrics.celeba_attribute_prediction import CelebaAttributeClassifier
+from confignet_tpu_torch.metrics.controllability import ControllabilityMetrics
+from confignet_tpu_torch.metrics.inception import InceptionFeatureExtractor, InceptionMetrics
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
 from confignet_tpu_torch.training.latent_gan import LatentGAN
@@ -142,6 +171,24 @@ FINE_TUNE_ITERS = 50  # bench_train.py's fine-tune flow: one photo, 50 iteration
 FINE_TUNE_COMPARE_ITERS = 5
 SAMPLE_N = 256  # ConfigNetServer.sample's request: 8 chunks of 32
 LATENT_GAN_STEPS = 20
+EVAL_IMAGES = 1000  # the evaluation dataset's images
+FID_SAMPLES = 1000  # the trainer's default n_samples_for_metrics (first_stage.py:767)
+FID_CHUNK = 64  # _metric_features_for_latents' chunk
+JUDGE_STEPS = 10
+JUDGE_PREDICTIONS = 256
+CONTR_IMAGES = 64  # get_metrics without tuning: 17 generate calls of 2 chunks of 32
+CONTR_TUNED_IMAGES = 2
+CONTR_TUNING_ITERS = 10
+# CelebA's 40 attributes less Wearing_Necklace and Wearing_Necktie, which the
+# classifier CLI leaves out (apps/train_attribute_classifier.py:29-30), sorted
+JUDGE_ATTRIBUTES = sorted([
+    "5_o_Clock_Shadow", "Arched_Eyebrows", "Attractive", "Bags_Under_Eyes", "Bald", "Bangs",
+    "Big_Lips", "Big_Nose", "Black_Hair", "Blond_Hair", "Blurry", "Brown_Hair", "Bushy_Eyebrows",
+    "Chubby", "Double_Chin", "Eyeglasses", "Goatee", "Gray_Hair", "Heavy_Makeup",
+    "High_Cheekbones", "Male", "Mouth_Slightly_Open", "Mustache", "Narrow_Eyes", "No_Beard",
+    "Oval_Face", "Pale_Skin", "Pointy_Nose", "Receding_Hairline", "Rosy_Cheeks", "Sideburns",
+    "Smiling", "Straight_Hair", "Wavy_Hair", "Wearing_Earrings", "Wearing_Hat",
+    "Wearing_Lipstick", "Young"])
 # bench_train.py's reference-scale stage-1 config (the reference's defaults at
 # 256px, 5 discriminator layers, the 145-dim latent layout), copied here
 TRAIN_CONFIG = {
@@ -1159,6 +1206,328 @@ def sampling_path(card: str, kind: str, profile_stem=None):
     return launches, rec
 
 
+def eval_config(compute_dtype: str, **extra):
+    """The serving config with the beard embedding given its 9 PCA dims, the
+    length of the controllability configs' beard exemplars
+    (metrics/controllability_metric_configs.py); latent_dim stays 145."""
+    config = serving_config(compute_dtype, **extra)
+    config["facemodel_inputs"]["beard_style_embedding"] = (9, 7)
+    return config
+
+
+def eval_model(compute_dtype: str, weights=None, **extra):
+    """A ConfigNet of eval_config with the evaluation's weights (seed 0, the
+    encoder heads given weights, or ``weights``) and seeded Gaussian
+    face-model distributions."""
+    model = ConfigNet(eval_config(compute_dtype, **extra), initialize=weights is None)
+    if weights is None:
+        give_encoder_heads_weights(model, FakeDataset(SERVE_CHUNK, model.config["output_shape"][0],
+                                                      {}, seed=12).imgs)
+    else:
+        model.set_weights(weights)
+    rng = np.random.default_rng(12)
+    model.facemodel_param_distributions = {
+        name: fit_distribution(rng.normal(size=(256, dims[0])), "GMM")
+        for name, dims in model.config["facemodel_inputs"].items()}
+    return model
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def contr_launches(n_images: int, tuning_iters: int = 0):
+    """ControllabilityMetrics.get_metrics: 17 generate_images calls (the raw
+    renders, then 8 configs set and not set) of ceil(n / 32) chunks, or with
+    tuning, per image a fine-tune and 17 calls of one chunk."""
+    if tuning_iters == 0:
+        return tuple(17 * -(-n_images // SERVE_CHUNK) * c for c in CHUNK_LAUNCHES)
+    return tuple(n_images * (tuning_iters * f + 17 * c)
+                 for f, c in zip(FINE_TUNE_ITER_LAUNCHES, CHUNK_LAUNCHES))
+
+
+def evaluation_dataset(directory: str):
+    """EVAL_IMAGES seeded uint8 images in a NeuralRendererDataset memmap with
+    seeded labels for JUDGE_ATTRIBUTES; saved, loaded back (equal), and its
+    Inception features computed (bf16), timed.  Returns (the loaded
+    dataset, its record)."""
+    size = eval_config("float32")["output_shape"][0]
+    rng = np.random.default_rng(12)
+    dataset = NeuralRendererDataset((size, size, 3), is_synthetic=False)
+    path = os.path.join(directory, "eval_set.pck")
+    dataset._initialize_imgs_memmap(EVAL_IMAGES, path)
+    dataset.imgs[:] = rng.integers(0, 256, dataset.imgs.shape, dtype=np.uint8)
+    labels = rng.random((EVAL_IMAGES, len(JUDGE_ATTRIBUTES))) < 0.5
+    dataset.attributes = [dict(zip(JUDGE_ATTRIBUTES, map(int, row))) for row in labels]
+    dataset.imgs.flush()
+    dataset.save(path)
+    loaded = NeuralRendererDataset.load(path)
+    if not (np.array_equal(loaded.imgs, dataset.imgs) and loaded.attributes == dataset.attributes
+            and loaded.img_shape == dataset.img_shape):
+        raise AssertionError("the reloaded evaluation dataset differs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded._compute_inception_features()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    features = loaded.inception_features
+    if features.shape != (EVAL_IMAGES, 2048) or not np.isfinite(features).all() or features.std() == 0:
+        raise AssertionError(f"dataset inception features {features.shape}")
+    print(f"evaluate: dataset of {EVAL_IMAGES} {size}px images saved and reloaded (equal); "
+          f"_compute_inception_features (bf16, extractor built in the call) in {seconds:.2f} s = "
+          f"{EVAL_IMAGES / seconds:.1f} img/s", flush=True)
+    return loaded, dict(images=EVAL_IMAGES, inception_s=seconds,
+                        inception_img_per_s=EVAL_IMAGES / seconds)
+
+
+def fid_run(model, dataset, card: str, kind: str):
+    """The trainer's FID/KID at bf16: InceptionMetrics on the dataset and
+    the fused features of FID_SAMPLES sampled latents in chunks of
+    FID_CHUNK, cold and warm, each with the launches of one generator chunk
+    per chunk.  Returns (the latents, rotations, launches, the record)."""
+    model._inception_metric_object = InceptionMetrics(model.config, dataset, FID_SAMPLES)
+    np.random.seed(12)
+    latents = model.sample_latent_vector(FID_SAMPLES)
+    rotations = model.sample_rotations(FID_SAMPLES)
+    expected = tuple(-(-FID_SAMPLES // FID_CHUNK) * c for c in CHUNK_LAUNCHES)
+    run = lambda: model._metric_features_for_latents(latents, rotations, batch_chunk=FID_CHUNK)  # noqa: E731
+    t0 = time.perf_counter()
+    counted(run, expected, "fused FID features (cold)")
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    features, launches = counted(run, expected, "fused FID features")
+    seconds = time.perf_counter() - t0
+    kid, fid = model._inception_metric_object.get_metrics(features=features)
+    if features.shape != (FID_SAMPLES, 2048) or not (np.isfinite(kid) and np.isfinite(fid)):
+        raise AssertionError(f"fused FID features {features.shape}: KID {kid}, FID {fid}")
+    print(f"evaluate: fused FID features of {FID_SAMPLES} latents in {seconds * 1e3:.1f} ms = "
+          f"{FID_SAMPLES / seconds:.1f} features/s (warm; cold {FID_SAMPLES / cold_s:.1f}) at "
+          f"{model.config['output_shape'][0]}px bfloat16, chunk {FID_CHUNK}, on {kind} ({card}); "
+          f"launches {launches}; KID {kid:.6g}, "
+          f"FID {fid:.6g}", flush=True)
+    return latents, rotations, launches, dict(
+        samples=FID_SAMPLES, chunk=FID_CHUNK, seconds=seconds, features_per_s=FID_SAMPLES / seconds,
+        cold_features_per_s=FID_SAMPLES / cold_s, launches=dict(zip(LAUNCH_NAMES, launches)),
+        kid=kid, fid=fid)
+
+
+def compare_fid_paths(weights, metric_object, latents, rotations) -> dict:
+    """float32 fused features of the kernel path and of the plain path
+    (gather rotation, plain AdaIN) from the same weights and latents, and of
+    get_features(generate_images(...), max_chunk_size=FID_CHUNK) on the
+    kernel path, each through a float32 Inception with the metric object's
+    weights: each within a relative L2 distance of 1e-3.  (The bf16
+    Inception moves its features by ~1.7e-3 under any change of the uint8
+    images, so it could not tell a wrong kernel from rounding.)"""
+    extractor = InceptionFeatureExtractor(metric_object.inception_feature_extractor.input_shape,
+                                          dtype=torch.float32)
+    metric_object = copy.copy(metric_object)
+    metric_object.inception_feature_extractor = extractor
+    features = {}
+    for name, extra in (("plain", dict(rotation_resample="gather", adain_impl="plain")),
+                        ("kernel", {})):
+        model = eval_model("float32", weights, **extra)
+        model._inception_metric_object = metric_object
+        expected = (0, 0, 0, 0) if extra else tuple(
+            -(-len(latents) // FID_CHUNK) * c for c in CHUNK_LAUNCHES)
+        features[name], _ = counted(lambda: model._metric_features_for_latents(
+            latents, rotations, batch_chunk=FID_CHUNK), expected, f"fused FID features ({name})")
+        if name == "kernel":
+            renders = model.generate_images(latents, rotations)
+            features["separate"] = extractor.get_features(renders, max_chunk_size=FID_CHUNK)
+        del model
+        torch.cuda.empty_cache()
+    out = dict(kernel_vs_plain=rel_l2(features["kernel"], features["plain"]),
+               fused_vs_separate=rel_l2(features["kernel"], features["separate"]), bound=1e-3)
+    print(f"evaluate float32 fused features (float32 Inception), relative L2: kernel vs plain "
+          f"path {out['kernel_vs_plain']:.6g}, fused vs get_features(generate_images) "
+          f"{out['fused_vs_separate']:.6g}; bound {out['bound']:.6g}", flush=True)
+    if not (out["kernel_vs_plain"] <= out["bound"] and out["fused_vs_separate"] <= out["bound"]):
+        raise AssertionError(f"fused FID features disagree: {out}")
+    return out
+
+
+def judge_run(dataset, directory: str, card: str, kind: str):
+    """The attribute classifier at full width (256px, the 38 attributes,
+    batch 32, trainable trunk norms): one warm-up and JUDGE_STEPS timed train
+    steps through the step function, recalibrate_batch_stats(dataset, 10),
+    predict_attributes on JUDGE_PREDICTIONS images (warm, timed), then
+    save / load with predictions equal bit for bit.  Returns (the reloaded
+    classifier, the record)."""
+    size = dataset.img_shape[0]
+    clf = CelebaAttributeClassifier({"input_shape": (size, size, 3),
+                                     "predicted_attributes": JUDGE_ATTRIBUTES, "batch_size": 32,
+                                     "trainable_bn": True})
+    np.random.seed(12)
+    batches = [tuple(torch.from_numpy(a).to(clf.device) for a in clf.sample_batch_from_dataset(dataset))
+               for _ in range(JUDGE_STEPS + 1)]
+    step = clf._build_train_step()
+    results = [step(*batches[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results += [step(*batch) for batch in batches[1:]]
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    losses = [float(loss) for loss, _ in results]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"attribute classifier losses {losses}")
+    clf.recalibrate_batch_stats(dataset, 10)
+    imgs = np.asarray(dataset.imgs[:JUDGE_PREDICTIONS])
+    clf.predict_attributes(imgs)
+    t0 = time.perf_counter()
+    predictions = clf.predict_attributes(imgs)
+    predict_s = time.perf_counter() - t0
+    if predictions.shape != (JUDGE_PREDICTIONS, len(JUDGE_ATTRIBUTES)) or not (
+            np.isfinite(predictions).all() and predictions.std() > 0):
+        raise AssertionError(f"predictions {predictions.shape}")
+    clf.save(directory, "judge")
+    loaded = CelebaAttributeClassifier.load(os.path.join(directory, "judge.json"))
+    if not np.array_equal(loaded.predict_attributes(imgs), predictions):
+        raise AssertionError("the reloaded attribute classifier predicts otherwise")
+    rec = dict(steps=JUDGE_STEPS, batch=32, steps_per_s=JUDGE_STEPS / step_s,
+               predictions=JUDGE_PREDICTIONS, predictions_per_s=JUDGE_PREDICTIONS / predict_s,
+               losses=losses)
+    print(f"evaluate: attribute classifier ({len(JUDGE_ATTRIBUTES)} attributes, {size}px, trainable "
+          f"BN) {JUDGE_STEPS} steps of 32 in {step_s * 1e3:.1f} ms = {rec['steps_per_s']:.2f} steps/s; "
+          f"{JUDGE_PREDICTIONS} predictions in {predict_s * 1e3:.1f} ms = "
+          f"{rec['predictions_per_s']:.1f}/s on {kind} ({card}); losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; save/load: predictions equal bit for bit", flush=True)
+    return loaded, rec
+
+
+def check_contr_metrics(metrics, label: str) -> None:
+    tuples = [k for k, v in metrics.items() if k.endswith("_config")]
+    if len(tuples) != 8 or not np.isfinite(metrics["controllability"]):
+        raise AssertionError(f"{label}: configs {tuples}, controllability {metrics['controllability']}")
+
+
+def contr_run(model, judge, imgs, tuning_iters: int, label: str, card: str, kind: str,
+              profile_path=None):
+    """ControllabilityMetrics(model, judge, tuning_iters).get_metrics(imgs),
+    timed, with the launches contr_launches gives; with ``profile_path``,
+    one more call profiled.  Returns (launches, the record)."""
+    metrics_obj = ControllabilityMetrics(model, judge, per_image_tuning_iters=tuning_iters)
+    np.random.seed(13)
+    t0 = time.perf_counter()
+    metrics, launches = counted(lambda: metrics_obj.get_metrics(imgs),
+                                contr_launches(len(imgs), tuning_iters), label)
+    seconds = time.perf_counter() - t0
+    model._fine_tuned_generator_params = None
+    check_contr_metrics(metrics, label)
+    print(f"evaluate: {label}: {len(imgs)} images in {seconds * 1e3:.1f} ms = "
+          f"{len(imgs) / seconds:.2f} img/s on {kind} ({card}); launches {launches}; "
+          f"controllability {metrics['controllability']:.6g}", flush=True)
+    if profile_path:
+        profile(label, lambda: metrics_obj.get_metrics(imgs), profile_path)
+    return launches, dict(images=len(imgs), tuning_iters=tuning_iters, seconds=seconds,
+                          img_per_s=len(imgs) / seconds, launches=dict(zip(LAUNCH_NAMES, launches)),
+                          controllability=metrics["controllability"])
+
+
+def compare_contr_paths(weights, judge, imgs) -> dict:
+    """The controllability renders and metrics of the float32 kernel path and
+    of the plain path from the same weights after the same np.random seed:
+    every render within a mean abs uint8 difference of 1.0; the same uint8
+    images scored through either model's metric object give identical
+    tuples (a check of the judge); every per-config value of the two full
+    runs within 1e-3 absolute, widened to 4x a one-site rounding probe (the
+    plain path with the resample rounded once from float64) where the
+    judge's outputs are that sensitive.  The probe's largest change to any
+    value sets the one bound: a single config's change is one draw of the
+    same rounding noise (NVIDIA H100: 5e-5 to 1.2e-3 across the configs of
+    one probe)."""
+    generator_module._ROTATION_IMPLS.update(gather_via_float64=_rotate_via_float64)
+    runs = {}
+    for name, extra in (("plain", dict(rotation_resample="gather", adain_impl="plain")),
+                        ("probe", dict(rotation_resample="gather_via_float64", adain_impl="plain")),
+                        ("kernel", {})):
+        model = eval_model("float32", weights, **extra)
+        metrics_obj = ControllabilityMetrics(model, judge)
+        np.random.seed(14)
+        expected = (0, 0, 0, 0) if extra else contr_launches(len(imgs))
+        renders, _ = counted(lambda: metrics_obj.generate_images_for_metric(imgs), expected,
+                             f"controllability renders ({name})")
+        runs[name] = (metrics_obj, renders, metrics_obj.get_metrics_from_attribute_images(*renders[1:]))
+        del model
+        torch.cuda.empty_cache()
+
+    def pairs(renders):
+        raw, with_attr, without_attr = renders
+        return [("raw", raw)] + [(f"{k}+", v) for k, v in with_attr.items()] + \
+            [(f"{k}-", v) for k, v in without_attr.items()]
+
+    diffs = {k: float(np.abs(a.astype(int) - b.astype(int)).mean())
+             for (k, a), (_, b) in zip(pairs(runs["kernel"][1]), pairs(runs["plain"][1]))}
+    same_images = runs["plain"][0].get_metrics_from_attribute_images(*runs["kernel"][1][1:])
+    judge_identical = all(np.array_equal(v, runs["kernel"][2][k], equal_nan=True)
+                          for k, v in same_images.items())
+
+    def deltas(name):
+        """Max abs difference of each value from the plain path's (a
+        correlation that is NaN on both sides, from constant predictions,
+        agrees)."""
+        out = {}
+        for k, v in runs[name][2].items():
+            a, b = np.asarray(v, np.float64), np.asarray(runs["plain"][2][k], np.float64)
+            out[k] = float(np.max(np.where(np.isnan(a) & np.isnan(b), 0.0, np.abs(a - b))))
+        return out
+
+    kernel, probe = deltas("kernel"), deltas("probe")
+    bound = max(1e-3, 4 * max(probe.values()))
+    worst = max(diffs, key=diffs.get)
+    print(f"evaluate float32 controllability kernel vs plain path: renders mean abs uint8 difference "
+          f"up to {diffs[worst]:.4f} ({worst}), bound 1.0; the same images through either model "
+          f"{'identical' if judge_identical else 'DIFFER'}; per-config max abs difference "
+          f"{json.dumps(kernel)}; one-site rounding probe {json.dumps(probe)}; bound {bound:.6g}",
+          flush=True)
+    failed = [k for k in kernel if not kernel[k] <= bound]
+    if not (diffs[worst] < 1.0 and judge_identical) or failed:
+        raise AssertionError(f"controllability kernel and plain paths disagree: {failed}")
+    return dict(render_mean_abs_uint8=diffs, kernel_vs_plain=kernel, probe_vs_plain=probe,
+                bound=bound)
+
+
+def evaluation_path(card: str, kind: str, profile_stem=None):
+    """Step 12: the evaluation dataset, FID/KID through the fused path, the
+    attribute judge and the controllability metric at full width; with
+    ``profile_stem``, one fused FID chunk and one controllability request
+    are profiled into ``<profile_stem>_fid.txt`` and ``_contr.txt``.
+    Returns (the launches of the evaluation's kernel runs, summed, the
+    record)."""
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as directory:
+        dataset, dataset_rec = evaluation_dataset(directory)
+        model = eval_model("bfloat16")
+        weights = model.get_weights()
+        latents, rotations, fid_launches, fid_rec = fid_run(model, dataset, card, kind)
+        if profile_stem:
+            profile(f"fused FID chunk {FID_CHUNK} (bfloat16)", lambda: model._metric_features_for_latents(
+                latents[:FID_CHUNK], rotations[:FID_CHUNK]), profile_stem + "_fid.txt")
+        fid_paths = compare_fid_paths(weights, model._inception_metric_object, latents, rotations)
+        judge, judge_rec = judge_run(dataset, directory, card, kind)
+
+        imgs = np.asarray(dataset.imgs[:CONTR_IMAGES])
+        contr_counts, contr_rec = contr_run(
+            model, judge, imgs, 0, "controllability (bfloat16, no tuning)", card, kind,
+            profile_stem and profile_stem + "_contr.txt")
+        del model
+        torch.cuda.empty_cache()
+        contr_paths = compare_contr_paths(weights, judge, imgs)
+        model = eval_model("float32", weights)
+        tuned_launches, tuned_rec = contr_run(
+            model, judge, imgs[:CONTR_TUNED_IMAGES], CONTR_TUNING_ITERS,
+            f"controllability (float32, {CONTR_TUNING_ITERS} tuning iterations)", card, kind)
+        del model
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_step
+    print(f"evaluate: step 12 took {seconds:.1f} s", flush=True)
+    launches = tuple(map(sum, zip(fid_launches, contr_counts, tuned_launches)))
+    return launches, dict(dataset=dataset_rec, fid=fid_rec, fid_paths=fid_paths, judge=judge_rec,
+                          contr=contr_rec, contr_paths=contr_paths, contr_tuned=tuned_rec,
+                          seconds=seconds)
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -1197,8 +1566,9 @@ def main() -> int:
                         "server with torch.profiler and write its kernel table here (and, beside "
                         "it, one float32 train step's of each stage, as <stem>_train.txt and "
                         "<stem>_train2.txt, a float32 fine-tune of 10 iterations, as "
-                        "<stem>_fine_tune.txt, one LatentGAN step, as <stem>_latent_gan.txt, and "
-                        "one sampled chunk, as <stem>_sample.txt)")
+                        "<stem>_fine_tune.txt, one LatentGAN step, as <stem>_latent_gan.txt, "
+                        "one sampled chunk, as <stem>_sample.txt, one fused FID chunk, as "
+                        "<stem>_fid.txt, and one controllability request, as <stem>_contr.txt)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -1230,7 +1600,7 @@ def main() -> int:
 
     # -- 3. kernel phases ------------------------------------------------------
     records = []
-    for batch in (SERVE_CHUNK, 256):
+    for batch in (SERVE_CHUNK, FID_CHUNK, 256):
         for dtype in (torch.float32, torch.bfloat16):
             rotate_phase(batch, dtype, records)
             for positions, channels in ADAIN_SITES_256:
@@ -1242,7 +1612,8 @@ def main() -> int:
         rotate_phase(batch, torch.float32, records)
         for positions, channels in ADAIN_SITES_256:
             adain_phase(batch, positions, channels, torch.float32, records)
-    # the fine-tune's batch: one photo
+    # the fine-tune's batch and the tuned controllability's renders: one photo
+    rotate_phase(1, torch.float32, records)
     for dtype in (torch.float32, torch.bfloat16):
         for positions, channels in ADAIN_SITES_256:
             adain_phase(1, positions, channels, dtype, records)
@@ -1415,7 +1786,11 @@ def main() -> int:
     path_launches["sample"], sampling = sampling_path(card, kind, profile_stem)
     torch.cuda.empty_cache()
 
-    # -- 12. records -----------------------------------------------------------------
+    # -- 12. the evaluation path: dataset, FID/KID, attribute judge, controllability ----
+    path_launches["evaluate"], evaluation = evaluation_path(card, kind, profile_stem)
+    torch.cuda.empty_cache()
+
+    # -- 13. records -----------------------------------------------------------------
     def times(phase_counts, dtype="float32"):
         """The phases at a path's shapes, each counted as often as the path
         launches it: error, times and bound of the path's launches."""
@@ -1462,12 +1837,14 @@ def main() -> int:
               {("adain_backward_cuda", half): 2}),
     ]
     # the kernels each path runs: serving and sampling render only; the
-    # fine-tune resamples with the gather form
+    # fine-tune resamples with the gather form; the evaluation renders, and
+    # fine-tunes with per_image_tuning_iters
     on_path = {"serve": {"rotate_cuda", "adain_cuda"},
                "train_stage1": {item["name"] for item in kernels},
                "train_stage2": {item["name"] for item in kernels},
                "fine_tune": {"adain_cuda", "adain_backward_cuda"},
-               "sample": {"rotate_cuda", "adain_cuda"}}
+               "sample": {"rotate_cuda", "adain_cuda"},
+               "evaluate": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -1481,7 +1858,7 @@ def main() -> int:
              "train": [train_f32, train_bf16], "train_paths": train_paths,
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
-             "sampling": sampling,
+             "sampling": sampling, "evaluation": evaluation,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -15,8 +15,13 @@ maps onto a torch parameter name by turning ``/`` into ``.`` and ``kernel``
 into ``weight``; only the layout of kernels changes:
 
 - Dense ``(in, out)`` -> ``(out, in)``;
-- Conv2D HWIO -> OIHW, Conv3D DHWIO -> OIDHW;
+- Conv2D HWIO -> OIHW (a depthwise (kh, kw, 1, C) becomes (C, 1, kh, kw)),
+  Conv3D DHWIO -> OIDHW;
 - everything else (biases, norm parameters, ``learned_input``) as is.
+
+A flax ``batch_stats`` collection (the running ``mean`` and ``var`` of a
+live BatchNorm) maps onto the buffers of those names, the same way
+(``collection="batch_stats"``).
 
 The JAX package's other weight formats are not read: the orbax directory
 needs JAX's libraries, and a reference-release npz (Keras weight lists)
@@ -77,14 +82,30 @@ def _jax_key(torch_name: str) -> str:
     return "/".join(parts)
 
 
-def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
-    """Copy JAX parameters, keyed by their pytree path within ONE tree (e.g.
-    ``map_3d_0/conv_0/kernel``), into ``model``.
+# the buffers that hold a flax BatchNorm's ``batch_stats``
+BATCH_STAT_NAMES = ("mean", "var")
+
+
+def _collection(model: nn.Module, collection: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a flax variable collection: "params" (the parameters)
+    or "batch_stats" (the ``mean`` / ``var`` buffers)."""
+    if collection == "params":
+        return dict(model.named_parameters())
+    if collection == "batch_stats":
+        return {name: buf for name, buf in model.named_buffers()
+                if name.rsplit(".", 1)[-1] in BATCH_STAT_NAMES}
+    raise ValueError(f"unknown variable collection {collection!r} (params|batch_stats)")
+
+
+def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray], collection: str = "params") -> None:
+    """Copy JAX parameters (or another flax collection's variables), keyed by
+    their pytree path within ONE tree (e.g. ``map_3d_0/conv_0/kernel``),
+    into ``model``.
 
     Raises on a missing key, an unused key or a shape mismatch, so a load
     either sets every parameter or fails.
     """
-    params = dict(model.named_parameters())
+    params = _collection(model, collection)
     by_key = {_jax_key(name): name for name in params}
     missing = sorted(set(by_key) - set(flat))
     unused = sorted(set(flat) - set(by_key))
@@ -103,24 +124,26 @@ def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
             param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
-def export_jax_tensors(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
-    """(torch parameter name, tensor of that parameter's shape) pairs -> float32
-    numpy arrays in JAX layout under the parameters' pytree-path keys (the
-    parameters themselves, or per-parameter optimizer state).  The arrays are
-    copies: later updates of the tensors do not show in them."""
+def export_jax_tensors(named: Iterable[Tuple[str, torch.Tensor]],
+                       dtype: torch.dtype = torch.float32) -> Dict[str, np.ndarray]:
+    """(torch parameter name, tensor of that parameter's shape) pairs -> numpy
+    arrays of ``dtype`` in JAX layout under the parameters' pytree-path keys
+    (the parameters themselves, or per-parameter optimizer state).  The arrays
+    are copies: later updates of the tensors do not show in them."""
     flat = {}
     for name, tensor in named:
-        value = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
+        value = tensor.detach().to("cpu", dtype, copy=True).numpy()
         if name.endswith("weight"):
             value = np.ascontiguousarray(value.transpose(_TO_JAX[value.ndim]))
         flat[_jax_key(name)] = value
     return flat
 
 
-def export_jax_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`load_jax_params`: the model's parameters as float32
-    numpy arrays in JAX layout under their pytree-path keys."""
-    return export_jax_tensors(model.named_parameters())
+def export_jax_params(model: nn.Module, collection: str = "params") -> Dict[str, np.ndarray]:
+    """Inverse of :func:`load_jax_params`: the model's parameters (or batch
+    statistics) as float32 numpy arrays in JAX layout under their pytree-path
+    keys."""
+    return export_jax_tensors(_collection(model, collection).items())
 
 
 # ----------------------------------------------------------------------

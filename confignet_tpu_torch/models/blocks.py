@@ -75,27 +75,33 @@ class Dense(nn.Module):
 
 class Conv2d(nn.Module):
     """flax ``nn.Conv`` on (B, H, W, C): kernel HWIO there, OIHW here;
-    ``padding`` "SAME" (TF rule) or "VALID"."""
+    ``padding`` "SAME" (TF rule) or "VALID".  ``groups`` is flax's
+    ``feature_group_count``: a depthwise kernel (kh, kw, 1, C) there is
+    (C, 1, kh, kw) here.  With ``use_bias=False`` there is no bias
+    parameter, as in flax."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  stride: int = 1, padding: str = "SAME", dtype: Optional[torch.dtype] = None,
-                 kernel_init: str = "glorot_uniform"):
+                 kernel_init: str = "glorot_uniform", use_bias: bool = True, groups: int = 1):
         super().__init__()
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
         self.kernel_init = kernel_init
-        self.weight = nn.Parameter(torch.empty(features, in_features, *kernel_size))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(features, in_features // groups, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_kernel_(self.weight, self.kernel_init, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
-        return conv_channels_last(x, weight, bias, stride=self.stride, padding=self.padding)
+        return conv_channels_last(x, weight, bias, stride=self.stride, padding=self.padding,
+                                  groups=self.groups)
 
 
 class MLP(nn.Module):

@@ -20,14 +20,16 @@ from torch import nn
 from confignet_tpu_torch.core.initializers import init_kernel_
 
 
-def promote(dtype: Optional[torch.dtype], *tensors: torch.Tensor):
+def promote(dtype: Optional[torch.dtype], *tensors: Optional[torch.Tensor]):
     """flax ``promote_dtype``: cast inputs and parameters to ``dtype``, or,
-    when it is None, to their common promoted type."""
+    when it is None, to their common promoted type.  None (an absent bias)
+    passes through."""
+    present = [t for t in tensors if t is not None]
     if dtype is None:
-        dtype = tensors[0].dtype
-        for t in tensors[1:]:
+        dtype = present[0].dtype
+        for t in present[1:]:
             dtype = torch.promote_types(dtype, t.dtype)
-    return tuple(t.to(dtype) for t in tensors)
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
 
 
 def _same_pads(size: int, k: int, stride: int):
@@ -37,9 +39,10 @@ def _same_pads(size: int, k: int, stride: int):
 
 
 def conv_channels_last(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                       stride: int = 1, padding: Union[str, int] = "SAME") -> torch.Tensor:
-    """x (B, *spatial, Ci) with a torch-layout kernel (Co, Ci, *taps) ->
-    contiguous (B, *spatial', Co).  ``padding``: "SAME" (TF rule), "VALID"
+                       stride: int = 1, padding: Union[str, int] = "SAME",
+                       groups: int = 1) -> torch.Tensor:
+    """x (B, *spatial, Ci) with a torch-layout kernel (Co, Ci / groups, *taps)
+    -> contiguous (B, *spatial', Co).  ``padding``: "SAME" (TF rule), "VALID"
     or an int applied on both sides of every spatial axis."""
     rank = x.ndim - 2
     xc = x.movedim(-1, 1)
@@ -55,7 +58,7 @@ def conv_channels_last(x: torch.Tensor, weight: torch.Tensor, bias: Optional[tor
     elif padding != "VALID":
         raise ValueError(f"unknown padding {padding!r}")
     conv = F.conv2d if rank == 2 else F.conv3d
-    out = conv(xc, weight, bias, stride=stride, padding=conv_pad)
+    out = conv(xc, weight, bias, stride=stride, padding=conv_pad, groups=groups)
     return out.movedim(1, -1).contiguous()
 
 

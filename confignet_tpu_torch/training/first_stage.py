@@ -5,8 +5,10 @@ parameter trees of the JAX checkpoint (``WEIGHT_TREES``), one Adam per
 player and the fused stage-1 training step (:meth:`_build_train_step`), plus
 the checkpoint files (:meth:`save`, :meth:`load`: the JAX package's json,
 npz, distribution pickle and log), the host-side sampling helpers, the
-latent-manipulation API and image generation.  The ``train()`` loop with its
-metrics, logging and prefetch thread comes with the infrastructure slice.
+latent-manipulation API, image generation and the fused generator ->
+InceptionV3 features of FID/KID (:meth:`_metric_features_for_latents`).  The
+``train()`` loop with its metric schedule, logging and prefetch thread comes
+with the infrastructure slice.
 
 The step copies the JAX step's order: (a) the image-D update on hflipped
 real images against ``G(z, rot)`` from the pre-step generator, computed
@@ -185,6 +187,8 @@ class ConfigNetFirstStage:
         self.d_losses: Dict[str, List[float]] = {}
         self.metrics: Dict[str, List] = {}
         self.facemodel_param_distributions = None
+        # an InceptionMetrics for FID/KID, set by whoever scores the model
+        self._inception_metric_object = None
         self._build_modules()
         if initialize:
             self.initialize_network()
@@ -729,6 +733,44 @@ class ConfigNetFirstStage:
         if not outputs:
             return np.zeros((0,), np.uint8)
         return np.concatenate(outputs, axis=0)
+
+    def _get_metric_features_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """The fused generator -> InceptionV3 path of FID/KID
+        (first_stage.py:1147-1167): ``fn(latents, rotations)`` on the device
+        -> float32 (B, 2048).  The images are quantised on the device as
+        ``generate_images`` quantises them (clip, truncate to uint8, back to
+        float), so the features are those of the saved uint8 images, and the
+        images never cross to the host."""
+        generator = self._inference_generator()
+        extractor = self._inception_metric_object.inception_feature_extractor
+
+        def fused(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+            return extractor.features(uint8_from_unit_range(generator(latents, rotations)).float())
+
+        return fused
+
+    @torch.inference_mode()
+    def _metric_features_for_latents(self, latent_vectors, rotations,
+                                     batch_chunk: int = 64) -> np.ndarray:
+        """The fused path's features of the metric latents, chunked at a fixed
+        batch size (the tail padded by repeating its last row)."""
+        latent_vectors = np.asarray(latent_vectors, np.float32)
+        rotations = np.asarray(rotations, np.float32)
+        n = latent_vectors.shape[0]
+        chunk = min(batch_chunk, max(n, 1))
+        fn = self._get_metric_features_fn()
+        out = np.zeros((n, self._inception_metric_object.inception_feature_extractor.feature_dim),
+                       np.float32)
+        for start in range(0, n, chunk):
+            lat = latent_vectors[start:start + chunk]
+            rot = rotations[start:start + chunk]
+            pad = chunk - lat.shape[0]
+            if pad:
+                lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
+                rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
+            feats = fn(torch.from_numpy(lat).to(self.device), torch.from_numpy(rot).to(self.device))
+            out[start:start + chunk] = feats.cpu().numpy()[:chunk - pad]
+        return out
 
     def generate_images_from_facemodel(self, facemodel_params, rotations) -> np.ndarray:
         """Face-model parameters (one array per input, in config order) ->
