@@ -111,7 +111,30 @@
    rounding probe where the judge's outputs are that sensitive); and with
    per_image_tuning_iters=10 on 2 images in float32 (exactly 34, 0, 324 and
    120 launches).
-13. Prints the kernels' JSON record (launches per path, and times on the
+13. The train() loops, at full width (TRAIN_CONFIG, bf16, a 64-image fake
+   set with exemplar distributions, loss_print_period 2, both checkpoint
+   periods 3, FID/KID on 64 samples, an aml_run recorder in place of the
+   loss plots): stage-1 train() for 6 steps on the checkpoint worker, its
+   launch counters zeroed just before and read just after (exactly 6 steps'
+   launches plus, per checkpoint, the two panels' 4 render chunks and one
+   fused FID chunk), its files (checkpoints 0 and 3, both panels, whose PNG
+   IHDR and JPEG SOF0 sizes are read, four loss tables of 4 rows), metrics
+   at steps [0, 3] with finite KID/FID, 2 checkpoint events, steps/s and the
+   checkpoint times printed; 20 full-size batches through BatchPrefetcher,
+   once with its copies slowed and once with its consumer slowed, byte-equal
+   to _batch_to_device (a missing stream wait, an early reuse of a pinned
+   buffer or a missing record_stream fails this); attempt_reloading_checkpoint resumes at step 4 and
+   train(n_steps=8) runs 4 steps and writes checkpoint 6; the same seeded
+   loop with deterministic algorithms on the worker, inline, inline, on the
+   worker: the step-3 weights and loss tables of each worker run equal an
+   inline run's bit for bit where the two inline runs do, else within 4x
+   their distance;
+   stage-2 train() for 4 steps with a 64-image validation set and a
+   random-weight judge saved to json (checkpoints, the autoencoding panel,
+   image_metrics.txt, the controllability keys, finite values); and
+   LatentGAN.train() for 60 steps on the stage-2 model's embeddings, a
+   verbose log every 30 (checkpoints 0 and 30, finite KID/FID).
+14. Prints the kernels' JSON record (launches per path, and times on the
    float32 train step's path), then as the last line {"ok": true, "device":
    {...}}.
 
@@ -122,12 +145,16 @@ package import fails).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import itertools
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -135,10 +162,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from confignet_tpu_torch.core.model_io import load_confignet
+from confignet_tpu_torch.core.model_io import attempt_reloading_checkpoint, load_confignet
 from confignet_tpu_torch.data.dataset import NeuralRendererDataset
 from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
 from confignet_tpu_torch.data.distributions import fit_distribution
+from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.models import generator as generator_module
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
 from confignet_tpu_torch.ops import cuda_build
@@ -177,6 +205,15 @@ FID_CHUNK = 64  # _metric_features_for_latents' chunk
 JUDGE_STEPS = 10
 JUDGE_PREDICTIONS = 256
 CONTR_IMAGES = 64  # get_metrics without tuning: 17 generate calls of 2 chunks of 32
+LOOP_IMAGES = 64  # the training loops' fake training and validation sets
+LOOP_STEPS = 6  # stage-1 train(): checkpoints at steps 0 and 3
+LOOP_PERIOD = 3  # both checkpoint periods of the loops
+LOOP_RESUME_STEPS = 8  # the resumed stage-1 train(): steps 4..7, a checkpoint at 6
+LOOP_METRIC_SAMPLES = 64  # n_samples_for_metrics: one fused FID chunk
+LOOP2_STEPS = 4  # stage-2 train(): checkpoints at steps 0 and 3
+PREFETCH_BATCHES = 20
+GAN_LOOP_STEPS = 60
+GAN_LOOP_PERIOD = 30  # verbose_log_period: checkpoints at 0 and 30
 CONTR_TUNED_IMAGES = 2
 CONTR_TUNING_ITERS = 10
 # CelebA's 40 attributes less Wearing_Necklace and Wearing_Necktie, which the
@@ -1528,6 +1565,456 @@ def evaluation_path(card: str, kind: str, profile_stem=None):
                           seconds=seconds)
 
 
+class SinkRecorder:
+    """An ``aml_run`` stand-in: records ``log(name, value)``.  With a sink the
+    loops write no matplotlib plots (as in the JAX package), which this
+    machine could not draw."""
+
+    def __init__(self):
+        self.calls = []
+
+    def log(self, name, value):
+        self.calls.append((name, value))
+
+    def values(self, name):
+        return [v for n, v in self.calls if n == name]
+
+
+def loop_config(compute_dtype: str, **extra):
+    return train_config(compute_dtype, loss_print_period=2, image_checkpoint_period=LOOP_PERIOD,
+                        metrics_checkpoint_period=LOOP_PERIOD, **extra)
+
+
+def loop_dataset(config, seed: int):
+    """LOOP_IMAGES fake images of the config's size with metadata and
+    exemplar distributions of it (setup_training stores the distributions in
+    the checkpoints)."""
+    dataset = FakeDataset(LOOP_IMAGES, config["output_shape"][0],
+                          {k: v[0] for k, v in config["facemodel_inputs"].items()}, seed)
+    dataset.metadata_input_distributions = {
+        name: fit_distribution(values, "exemplar") for name, values in dataset.metadata_inputs.items()}
+    return dataset
+
+
+def checkpoint_chunks(model) -> int:
+    """Generator chunks of one stage-1 checkpoint: the render panel and the
+    synthetic panel in chunks of 32, and the fused FID chunks."""
+    panel = model.n_checkpoint_rotations * model.n_checkpoint_samples
+    return 2 * -(-panel // SERVE_CHUNK) + -(-LOOP_METRIC_SAMPLES // FID_CHUNK)
+
+
+def loop_launches(steps: int, checkpoints: int, render_chunks: int):
+    """Launches of ``steps`` train steps and ``checkpoints`` checkpoints of
+    ``render_chunks`` generator chunks each."""
+    return tuple(steps * t + checkpoints * render_chunks * c
+                 for t, c in zip(TRAIN_STEP_LAUNCHES, CHUNK_LAUNCHES))
+
+
+def png_size(path) -> tuple:
+    """(height, width) from a PNG's IHDR chunk."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", data[16:24])
+    return height, width
+
+
+def jpeg_size(path) -> tuple:
+    """(height, width) from a baseline JPEG's SOF0 segment."""
+    data = Path(path).read_bytes()
+    sof = data.find(b"\xff\xc0")
+    if data[:2] != b"\xff\xd8" or sof < 0:
+        raise AssertionError(f"{path} is not a baseline JPEG")
+    return struct.unpack(">HH", data[sof + 5:sof + 9])
+
+
+def check_files(directory, names, label: str) -> None:
+    missing = [name for name in names if not os.path.exists(os.path.join(directory, name))]
+    if missing:
+        raise AssertionError(f"{label}: missing {missing}")
+
+
+def checkpoint_files(step: int):
+    stem = f"checkpoints/{step:06d}"
+    return [stem + suffix for suffix in (".json", ".npz", "_log.json", "_facemodel_distr.pck")]
+
+
+def table_rows(path) -> np.ndarray:
+    table = np.atleast_2d(np.loadtxt(path))
+    if not np.isfinite(table).all():
+        raise AssertionError(f"{path} holds non-finite values")
+    return table
+
+
+LOSS_TABLES = ("generator", "discriminator", "synth_discriminator", "latent_discriminator")
+
+
+def stage1_loop(dataset, directory: str, label: str, card: str, kind: str, async_checkpointing=True):
+    """Stage-1 train() at full width (bf16, LOOP_STEPS steps, checkpoint
+    periods LOOP_PERIOD, FID/KID on LOOP_METRIC_SAMPLES) from seeded weights,
+    batches and metric draws, with the launch counters zeroed just before
+    and read just after: exactly LOOP_STEPS train steps' launches plus, per
+    checkpoint, the 2 + 2 render chunks of the two panels and the fused FID
+    chunk.  Checks the files, the tables, the metrics and the panels' sizes.
+    Returns (the model, the launches, the record)."""
+    np.random.seed(21)
+    model = ConfigNetFirstStage(loop_config("bfloat16", async_checkpointing=async_checkpointing))
+    sink = SinkRecorder()
+    np.random.seed(22)
+    zero_launch_counts()
+    result = model.train(dataset, dataset, directory, os.path.join(directory, "logs"),
+                         n_steps=LOOP_STEPS, n_samples_for_metrics=LOOP_METRIC_SAMPLES, aml_run=sink)
+    launches = launch_counts()
+    checkpoints = -(-LOOP_STEPS // LOOP_PERIOD)
+    expected = loop_launches(LOOP_STEPS, checkpoints, checkpoint_chunks(model))
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {launches}, expected {expected}")
+    if result["steps_run"] != LOOP_STEPS or model.checkpoint_events_run != checkpoints:
+        raise AssertionError(f"{label}: {result}, {model.checkpoint_events_run} checkpoints")
+    steps = list(range(0, LOOP_STEPS, LOOP_PERIOD))
+    check_files(directory, [f for step in steps for f in checkpoint_files(step)]
+                + [f"output_imgs/{step:06d}{suffix}" for step in steps for suffix in (".png", "_synth.jpg")]
+                + [f"{table}_losses.txt" for table in LOSS_TABLES] + ["inception_metrics.txt"], label)
+    for table in LOSS_TABLES:
+        rows = table_rows(os.path.join(directory, f"{table}_losses.txt")).shape[0]
+        if rows != steps[-1] + 1:  # written at the last checkpoint
+            raise AssertionError(f"{label}: {table}_losses.txt has {rows} rows")
+    if len(model.g_losses["loss_sum"]) != LOOP_STEPS:
+        raise AssertionError(f"{label}: {len(model.g_losses['loss_sum'])} loss rows in memory")
+    metrics = model.metrics
+    if metrics.get("training_step_number") != steps or not (
+            len(metrics["kid"]) == len(steps) and np.isfinite(metrics["kid"] + metrics["fid"]).all()):
+        raise AssertionError(f"{label}: metrics {metrics}")
+    size = model.config["output_shape"][0]
+    last = os.path.join(directory, "output_imgs", f"{steps[-1]:06d}")
+    shapes = (png_size(last + ".png"), jpeg_size(last + "_synth.jpg"))
+    want = ((model.n_checkpoint_rotations * size, model.n_checkpoint_samples * size),
+            ((model.n_checkpoint_rotations + 1) * size, model.n_checkpoint_samples * size))
+    if shapes != want:
+        raise AssertionError(f"{label}: panels {shapes}, expected {want}")
+    checkpoint_s = sink.values("Checkpoint time")
+    rec = dict(run=label, async_checkpointing=async_checkpointing, steps=LOOP_STEPS,
+               loop_seconds=result["loop_seconds"], steps_per_s=LOOP_STEPS / result["loop_seconds"],
+               checkpoint_s=checkpoint_s, launches=dict(zip(LAUNCH_NAMES, launches)),
+               kid=metrics["kid"], fid=metrics["fid"])
+    print(f"loop {label}: {LOOP_STEPS} steps in {result['loop_seconds']:.3f} s (the checkpoints' "
+          f"drain included) = {rec['steps_per_s']:.3f} steps/s on {kind} ({card}); Checkpoint time "
+          f"{['%.3f' % t for t in checkpoint_s]} s; launches {launches}; KID {metrics['kid']}, "
+          f"FID {metrics['fid']}; panels {shapes}", flush=True)
+    return model, launches, rec
+
+
+def npz_distance(a_path, b_path) -> float:
+    """The largest absolute difference between two checkpoints' leaves (the
+    leaf sets must be equal)."""
+    a, b = np.load(a_path), np.load(b_path)
+    if sorted(a.files) != sorted(b.files):
+        raise AssertionError(f"{a_path} and {b_path} hold other leaves")
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a.files)
+
+
+def tables_distance(a_dir, b_dir) -> float:
+    return max(float(np.abs(table_rows(os.path.join(a_dir, f"{t}_losses.txt"))
+                            - table_rows(os.path.join(b_dir, f"{t}_losses.txt"))).max())
+               for t in LOSS_TABLES)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic
+    implementations where an op has one (a warning names any op without)."""
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def async_against_sync(dataset, directory: str, card: str, kind: str) -> dict:
+    """The seeded stage-1 loop on the worker, inline, inline, on the worker,
+    with deterministic algorithms (with cuDNN's defaults two inline runs on
+    the card differ: 0.0039 in a weight and 2.4 in a loss table after 4
+    steps, and a loss table amplifies any difference further).  The two
+    inline runs measure the card's run-to-run distance; each worker run's
+    step-3 checkpoint and loss tables must equal an inline run's bit for
+    bit where the inline runs agree bit for bit, else lie within 4x their
+    distance.  This is the check that the worker never reads live weights:
+    the step after a checkpoint updates them in place."""
+    runs, records = {}, []
+    with deterministic_algorithms():
+        for name, async_checkpointing in (("async_1", True), ("sync_1", False), ("sync_2", False),
+                                          ("async_2", True)):
+            runs[name] = os.path.join(directory, name)
+            model, _, rec = stage1_loop(dataset, runs[name], f"stage1 bfloat16 deterministic {name}",
+                                        card, kind, async_checkpointing)
+            records.append(rec)
+            del model
+            torch.cuda.empty_cache()
+    step = f"checkpoints/{LOOP_PERIOD:06d}.npz"
+
+    def distances(a, b):
+        return (npz_distance(os.path.join(runs[a], step), os.path.join(runs[b], step)),
+                tables_distance(runs[a], runs[b]))
+
+    sync = distances("sync_1", "sync_2")
+    pairs = {"async_1-sync_1": distances("async_1", "sync_1"),
+             "async_2-sync_2": distances("async_2", "sync_2")}
+    bound = tuple(4 * d for d in sync)
+    print(f"loop async against sync: sync run to run (weights, tables) {sync}; async against sync "
+          f"{pairs}; bound {bound} (bit-equal where the sync runs are)", flush=True)
+    if any(d > b for pair in pairs.values() for d, b in zip(pair, bound)):
+        raise AssertionError(f"the async checkpoints differ from the sync ones: {pairs}, bound {bound}")
+    return dict(sync_distance=sync, async_distance=pairs, bound=bound, runs=records)
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def prefetch_integrity(model, dataset, card: str, kind: str) -> dict:
+    """PREFETCH_BATCHES full-size host batches through BatchPrefetcher, twice,
+    must reach the device byte for byte as ``_batch_to_device`` copies them.
+    Each phase makes one kind of stream fault show:
+
+    - "slow copies": the sampler, which runs on the prefetcher's thread just
+      before each batch is staged, queues a ~10 ms device sleep on the copy
+      stream, so every batch's copies run well after it is handed over.
+      Each batch is cloned on the consumer's stream as soon as it is taken,
+      and kept.  Without the consumer's wait on the copy's event the clone
+      reads memory the copy has not written yet; a pinned buffer that is
+      refilled before its copy has run sends the next batch's bytes, which
+      the kept batch then holds.
+    - "slow consumer": each batch is cloned behind a ~12 ms device sleep on
+      the consumer's stream and dropped at once.  Without ``record_stream``
+      the allocator hands its memory to the next copies on the side stream,
+      which overwrite it before the clone reads it.
+
+    All batches are compared after the last take.  A prefetcher with one of
+    these faults fails this check on the card (a mutation run, PERF.md §6)."""
+    host = [model._sample_host_batch(dataset, dataset) for _ in range(PREFETCH_BATCHES)]
+    want = [model._batch_to_device(batch) for batch in host]
+    n_bytes = sum(x.numel() * x.element_size() for x in _tree_leaves(want[0]))
+    rec = dict(batches=PREFETCH_BATCHES, batch_mb=n_bytes / 1e6)
+    for phase in ("slow copies", "slow consumer"):
+        counter = itertools.count()
+        clones, kept = [], []
+        started, prefetchers = threading.Event(), []
+
+        def sample():
+            if phase == "slow copies":
+                started.wait()
+                with torch.cuda.stream(prefetchers[0]._copy_stream):
+                    torch.cuda._sleep(20_000_000)
+            return host[next(counter) % PREFETCH_BATCHES]
+
+        t0 = time.perf_counter()
+        with BatchPrefetcher(sample, depth=2) as prefetcher:
+            prefetchers.append(prefetcher)
+            started.set()
+            for _ in range(PREFETCH_BATCHES):
+                batch = prefetcher.next()
+                if phase == "slow copies":
+                    kept.append(batch)
+                else:
+                    torch.cuda._sleep(20_000_000)
+                clones.append(_tree_clone(batch))
+                del batch
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bad = []
+        for i, reference in enumerate(want):
+            got = [clones[i]] + ([kept[i]] if kept else [])
+            if any(a.device.type != "cuda" or a.dtype != b.dtype or not torch.equal(a, b)
+                   for tree in got for a, b in zip(_tree_leaves(tree), _tree_leaves(reference))):
+                bad.append(i)
+        print(f"loop prefetch ({phase}): {PREFETCH_BATCHES} batches of {n_bytes / 1e6:.1f} MB "
+              f"through BatchPrefetcher in {seconds:.3f} s on {kind} ({card}); byte-equal to "
+              f"_batch_to_device: {PREFETCH_BATCHES - len(bad)} of {PREFETCH_BATCHES}", flush=True)
+        if bad:
+            raise AssertionError(f"prefetched batches {bad} differ from _batch_to_device's ({phase})")
+        rec[phase.replace(" ", "_") + "_s"] = seconds
+    return rec
+
+
+def loop2_config():
+    """TRAIN_CONFIG with the evaluation's face-model layout (62 blendshapes,
+    9 beard dims), which the controllability configs need; latent_dim 145."""
+    inputs = dict(TRAIN_CONFIG["facemodel_inputs"], blendshape_values=(62, 30),
+                  beard_style_embedding=(9, 7))
+    return loop_config("bfloat16", facemodel_inputs=inputs)
+
+
+def stage2_loop(directory: str, card: str, kind: str):
+    """Stage-2 train() at full width (bf16, LOOP2_STEPS steps, periods
+    LOOP_PERIOD) with a LOOP_IMAGES validation set and a random-weight
+    attribute judge (the 38 attributes, 256px) saved to a json path: the
+    checkpoints, the autoencoding panel, image_metrics.txt with a row per
+    metrics checkpoint, the controllability keys, finite values.  Returns
+    (the model, the validation set, the record)."""
+    config = loop2_config()
+    dataset = loop_dataset(config, seed=31)
+    validation = loop_dataset(config, seed=32)
+    judge = CelebaAttributeClassifier({"input_shape": tuple(config["output_shape"]),
+                                       "predicted_attributes": JUDGE_ATTRIBUTES})
+    judge.save(os.path.join(directory, "judge"), "judge")
+    np.random.seed(23)
+    model = ConfigNet(config)
+    give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
+    sink = SinkRecorder()
+    np.random.seed(24)
+    zero_launch_counts()
+    out = os.path.join(directory, "stage2")
+    result = model.train(dataset, dataset, validation, os.path.join(directory, "judge", "judge.json"),
+                         out, os.path.join(out, "logs"), n_steps=LOOP2_STEPS,
+                         n_samples_for_metrics=LOOP_METRIC_SAMPLES, aml_run=sink)
+    launches = launch_counts()
+    steps = list(range(0, LOOP2_STEPS, LOOP_PERIOD))
+    check_files(out, [f for step in steps for f in checkpoint_files(step)]
+                + [f"output_imgs/{step:06d}{s}" for step in steps for s in (".png", "_synth.jpg")]
+                + ["image_metrics.txt", "controllability_metrics.json"], "stage-2 loop")
+    size = config["output_shape"][0]
+    panel = png_size(os.path.join(out, "output_imgs", f"{steps[-1]:06d}.png"))
+    if panel != ((model.n_checkpoint_rotations + 2) * size, model.n_checkpoint_samples * size):
+        raise AssertionError(f"stage-2 autoencoding panel {panel}")
+    rows = np.atleast_1d(np.loadtxt(os.path.join(out, "image_metrics.txt")))
+    metrics = model.metrics
+    contr_keys = [k for k in metrics if k.endswith("_config")] + ["controllability"]
+    values = [metrics[k] for k in ("kid", "fid", "perceptual_loss", "controllability")]
+    if (rows.shape != (len(steps),) or not np.isfinite(rows).all() or len(contr_keys) != 9
+            or metrics.get("training_step_number") != steps
+            or not all(len(v) == len(steps) and np.isfinite(v).all() for v in values)):
+        raise AssertionError(f"stage-2 loop: image_metrics {rows}, metrics {sorted(metrics)}")
+    # per checkpoint: the synthetic panel, the autoencoding panel (10
+    # renders, then 60), the fused FID chunks of the encoded metric images,
+    # the controllability's 17 renders of them (contr_launches) and the
+    # perceptual metric's render of them
+    panel = model.n_checkpoint_rotations * model.n_checkpoint_samples
+    metric_chunks = -(-LOOP_METRIC_SAMPLES // SERVE_CHUNK)
+    chunks = (2 * -(-panel // SERVE_CHUNK) + -(-model.n_checkpoint_samples // SERVE_CHUNK)
+              + -(-LOOP_METRIC_SAMPLES // FID_CHUNK) + 17 * metric_chunks + metric_chunks)
+    expected = loop_launches(LOOP2_STEPS, len(steps), chunks)
+    if launches != expected:
+        raise AssertionError(f"stage-2 loop: launches {LAUNCH_NAMES} {launches}, expected {expected}")
+    rec = dict(steps=LOOP2_STEPS, loop_seconds=result["loop_seconds"],
+               steps_per_s=LOOP2_STEPS / result["loop_seconds"],
+               checkpoint_s=sink.values("Checkpoint time"), launches=dict(zip(LAUNCH_NAMES, launches)),
+               perceptual_loss=metrics["perceptual_loss"], controllability=metrics["controllability"],
+               kid=metrics["kid"], fid=metrics["fid"])
+    print(f"loop stage 2 (bfloat16): {LOOP2_STEPS} steps in {result['loop_seconds']:.3f} s = "
+          f"{rec['steps_per_s']:.3f} steps/s on {kind} ({card}); Checkpoint time "
+          f"{['%.3f' % t for t in rec['checkpoint_s']]} s; launches {launches}; image_metrics "
+          f"{rows.tolist()}; controllability {metrics['controllability']}; panel {panel}", flush=True)
+    return model, validation, rec
+
+
+def latent_gan_loop(confignet, dataset, directory: str, card: str, kind: str) -> dict:
+    """LatentGAN.train() on the stage-2 model's embeddings of ``dataset``:
+    GAN_LOOP_STEPS steps, a verbose log (panel, checkpoint, KID/FID of the
+    ConfigNet's renders of LOOP_METRIC_SAMPLES latents) every GAN_LOOP_PERIOD."""
+    np.random.seed(25)
+    gan = LatentGAN({"latent_dim": confignet.config["latent_dim"],
+                     "verbose_log_period": GAN_LOOP_PERIOD,
+                     "n_samples_for_metrics": LOOP_METRIC_SAMPLES})
+    out = os.path.join(directory, "latent_gan")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    gan.train(dataset, confignet, out, os.path.join(out, "logs"), n_iters=GAN_LOOP_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = list(range(0, GAN_LOOP_STEPS, GAN_LOOP_PERIOD))
+    # per verbose log the ConfigNet renders the panel's and the metrics' latents
+    chunks = (-(-gan.config["logging_img_square_size"] ** 2 // SERVE_CHUNK)
+              + -(-LOOP_METRIC_SAMPLES // SERVE_CHUNK))
+    expected = loop_launches(0, len(steps), chunks)
+    if launches != expected:
+        raise AssertionError(f"LatentGAN loop: launches {LAUNCH_NAMES} {launches}, expected {expected}")
+    check_files(out, [f"checkpoints/{step:06d}{s}" for step in steps for s in (".json", ".npz")],
+                "LatentGAN loop")
+    metrics = gan.metrics
+    if metrics.get("training_step_number") != steps or not np.isfinite(metrics["kid"] + metrics["fid"]).all():
+        raise AssertionError(f"LatentGAN loop: metrics {metrics}")
+    rec = dict(steps=GAN_LOOP_STEPS, seconds=seconds, steps_per_s=GAN_LOOP_STEPS / seconds,
+               launches=dict(zip(LAUNCH_NAMES, launches)), kid=metrics["kid"], fid=metrics["fid"])
+    print(f"loop LatentGAN: {GAN_LOOP_STEPS} steps (embedding {len(dataset.imgs)} images and "
+          f"{len(steps)} verbose logs included) in {seconds:.3f} s = {rec['steps_per_s']:.2f} steps/s "
+          f"on {kind} ({card}); launches {launches}; KID {metrics['kid']}, FID {metrics['fid']}",
+          flush=True)
+    return rec
+
+
+def training_loops(card: str, kind: str, profile_stem=None):
+    """Step 13: the train() loops at full width.  Stage 1 (bf16) on the
+    checkpoint worker with its launches counted; the resume from its step-3
+    checkpoint; the same seeded loop inline and on the worker in turns; the
+    prefetcher's integrity; stage 2 with a validation set and a judge; the
+    LatentGAN on the stage-2 model.  With ``profile_stem``, one loop window of
+    LOOP_PERIOD steps with a checkpoint is profiled into ``<stem>_loop.txt``.
+    Returns (the stage-1 loop's launches, the record)."""
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as directory:
+        dataset = loop_dataset(TRAIN_CONFIG, seed=0)
+        main_dir = os.path.join(directory, "async_1")
+        model, launches, loop_rec = stage1_loop(dataset, main_dir, "stage1 bfloat16 async_1", card, kind)
+        prefetch = prefetch_integrity(model, dataset, card, kind)
+        del model
+        torch.cuda.empty_cache()
+
+        resumed = attempt_reloading_checkpoint(main_dir)
+        start = resumed.get_resume_step()
+        if type(resumed) is not ConfigNetFirstStage or start != LOOP_PERIOD + 1:
+            raise AssertionError(f"resumed a {type(resumed).__name__} at step {start}")
+        resume_dir = os.path.join(directory, "resumed")
+        zero_launch_counts()
+        result = resumed.train(dataset, dataset, resume_dir, os.path.join(resume_dir, "logs"),
+                               n_steps=LOOP_RESUME_STEPS, n_samples_for_metrics=LOOP_METRIC_SAMPLES,
+                               aml_run=SinkRecorder())
+        resumed_launches = launch_counts()
+        if result["steps_run"] != LOOP_RESUME_STEPS - start or resumed.get_resume_step() != LOOP_RESUME_STEPS:
+            raise AssertionError(f"the resumed loop ran {result}")
+        check_files(resume_dir, checkpoint_files(2 * LOOP_PERIOD), "resumed loop")
+        expected = loop_launches(result["steps_run"], 1, checkpoint_chunks(resumed))
+        if resumed_launches != expected:
+            raise AssertionError(f"the resumed loop launched {resumed_launches}, expected {expected}")
+        print(f"loop resume: attempt_reloading_checkpoint gave a ConfigNetFirstStage at step {start}; "
+              f"train(n_steps={LOOP_RESUME_STEPS}) ran {result['steps_run']} steps in "
+              f"{result['loop_seconds']:.3f} s and wrote checkpoints/{2 * LOOP_PERIOD:06d}", flush=True)
+        if profile_stem:
+            profile(f"stage-1 loop window of {LOOP_PERIOD} steps with a checkpoint (bfloat16)",
+                    lambda: resumed._run_training(dataset, dataset, resume_dir,
+                                                  resumed.get_resume_step() + LOOP_PERIOD, None),
+                    profile_stem + "_loop.txt")
+        del resumed
+        torch.cuda.empty_cache()
+
+        turns = async_against_sync(dataset, os.path.join(directory, "turns"), card, kind)
+        stage2, validation, stage2_rec = stage2_loop(directory, card, kind)
+        gan_rec = latent_gan_loop(stage2, validation, directory, card, kind)
+        del stage2
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_step
+    print(f"loop: step 13 took {seconds:.1f} s", flush=True)
+    return launches, dict(stage1=loop_rec, prefetch=prefetch, resume=dict(start=start, **result),
+                          async_against_sync=turns, stage2=stage2_rec, latent_gan=gan_rec,
+                          seconds=seconds)
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -1568,7 +2055,11 @@ def main() -> int:
                         "<stem>_train2.txt, a float32 fine-tune of 10 iterations, as "
                         "<stem>_fine_tune.txt, one LatentGAN step, as <stem>_latent_gan.txt, "
                         "one sampled chunk, as <stem>_sample.txt, one fused FID chunk, as "
-                        "<stem>_fid.txt, and one controllability request, as <stem>_contr.txt)")
+                        "<stem>_fid.txt, one controllability request, as <stem>_contr.txt, and one "
+                        "stage-1 loop window of 3 steps with a checkpoint, as <stem>_loop.txt)")
+    parser.add_argument("--loops-only", action="store_true",
+                        help="only build the kernels and run step 13, the train() loops, then stop "
+                        "(no kernels line and no result line)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -1596,6 +2087,14 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     if args.rotate_sweep:
         rotate_sweep(args.rotate_sweep)
+        return 0
+    profile_stem = args.profile and str(Path(args.profile).with_name(Path(args.profile).stem))
+    if args.loops_only:
+        _, loops = training_loops(card, kind, profile_stem)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "loops": loops}, indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 13 only)")
         return 0
 
     # -- 3. kernel phases ------------------------------------------------------
@@ -1782,7 +2281,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11. the sampling path: checkpoint files, LatentGAN, photo-free samples --------
-    profile_stem = args.profile and str(Path(args.profile).with_name(Path(args.profile).stem))
     path_launches["sample"], sampling = sampling_path(card, kind, profile_stem)
     torch.cuda.empty_cache()
 
@@ -1790,7 +2288,11 @@ def main() -> int:
     path_launches["evaluate"], evaluation = evaluation_path(card, kind, profile_stem)
     torch.cuda.empty_cache()
 
-    # -- 13. records -----------------------------------------------------------------
+    # -- 13. the train() loops: stage 1, resume, async against sync, prefetch, stage 2, GAN --
+    path_launches["train_loop"], loops = training_loops(card, kind, profile_stem)
+    torch.cuda.empty_cache()
+
+    # -- 14. records -----------------------------------------------------------------
     def times(phase_counts, dtype="float32"):
         """The phases at a path's shapes, each counted as often as the path
         launches it: error, times and bound of the path's launches."""
@@ -1844,7 +2346,8 @@ def main() -> int:
                "train_stage2": {item["name"] for item in kernels},
                "fine_tune": {"adain_cuda", "adain_backward_cuda"},
                "sample": {"rotate_cuda", "adain_cuda"},
-               "evaluate": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
+               "evaluate": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
+               "train_loop": {item["name"] for item in kernels}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -1858,7 +2361,7 @@ def main() -> int:
              "train": [train_f32, train_bf16], "train_paths": train_paths,
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
-             "sampling": sampling, "evaluation": evaluation,
+             "sampling": sampling, "evaluation": evaluation, "loops": loops,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from confignet_tpu_torch.core.constants import device_constant
+
 
 def euler_angles_to_matrix(angle_vector: torch.Tensor) -> torch.Tensor:
     """(B, 3) Euler angles -> (B, 3, 3) rotation matrices (closed form of the
@@ -58,7 +60,8 @@ def _source_coords(grid: torch.Tensor, transform: torch.Tensor):
     size = grid.shape[1]
     center = (size - 1) / 2.0
     coord_dtype = torch.float64 if grid.dtype == torch.float64 else torch.float32
-    rel = torch.as_tensor(_grid_coords(size), dtype=coord_dtype, device=grid.device) - center
+    rel = device_constant(("grid_coords", size), lambda: _grid_coords(size) - center, coord_dtype,
+                          grid.device)
     t = transform.to(coord_dtype)
     src = (t[:, :, 0:1] * rel[0] + t[:, :, 1:2] * rel[1] + t[:, :, 2:3] * rel[2]) + center
     src = torch.clamp(src, 0.0, size - 1)

@@ -20,9 +20,9 @@ def gan_g_loss(scores: torch.Tensor) -> torch.Tensor:
     return F.softplus(-scores).mean()
 
 
-def gan_d_loss(labels: float, scores: torch.Tensor) -> torch.Tensor:
-    """Label-weighted softplus discriminator loss (losses.py:10-11)."""
-    labels = torch.as_tensor(labels, dtype=scores.dtype, device=scores.device)
+def gan_d_loss(labels, scores: torch.Tensor) -> torch.Tensor:
+    """Label-weighted softplus discriminator loss (losses.py:10-11).
+    ``labels``: a Python number or a tensor that broadcasts to ``scores``."""
     return (labels * F.softplus(-scores) + (1.0 - labels) * F.softplus(scores)).mean()
 
 

@@ -14,7 +14,8 @@ The aggregate is ``contr_attribute_means`` plus the scalar
 
 The renders go through the model's ``encode_images``, ``generate_images``
 and (with ``per_image_tuning_iters``) ``fine_tune_on_img`` on its device;
-the spliced latents through its synthetic encoder there.  The face-model
+the spliced latents through its synthetic encoder there (a checkpoint
+job's snapshot of it while one runs).  The face-model
 draws come from the global ``np.random`` in the JAX package's order.
 """
 from __future__ import annotations
@@ -83,7 +84,7 @@ class ControllabilityMetrics:
         model = self.confignet_model
         facemodel_params = self.get_facemodel_params_for_config(attribute_config, other_param)
         with torch.inference_mode():
-            latent_with_attr = model.synthetic_encoder(
+            latent_with_attr = model._inference_synthetic_encoder()(
                 [torch.from_numpy(np.asarray(p, np.float32)).to(model.device)
                  for p in facemodel_params]).float().cpu().numpy()
 

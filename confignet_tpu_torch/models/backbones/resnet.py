@@ -19,7 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.models.blocks import Conv2d
+
+# the BGR ImageNet means of Keras' 'caffe' preprocessing
+IMAGENET_BGR_MEAN = (103.939, 116.779, 123.68)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -141,5 +145,4 @@ def resnet50_preprocess(images_unit_range: torch.Tensor) -> torch.Tensor:
     reverse the channels, subtract the BGR ImageNet means."""
     x = (images_unit_range + 1.0) * 127.5
     x = x.flip(-1)
-    mean = torch.tensor([103.939, 116.779, 123.68], dtype=x.dtype, device=x.device)
-    return x - mean
+    return x - device_constant("imagenet_bgr_mean", lambda: IMAGENET_BGR_MEAN, x.dtype, x.device)

@@ -17,7 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from confignet_tpu_torch.core.constants import device_constant
+from confignet_tpu_torch.models.backbones.resnet import IMAGENET_BGR_MEAN
 from confignet_tpu_torch.models.blocks import Conv2d
+
+VGGFACE_MEAN = (93.5940, 104.7624, 129.1863)
 
 # (convs_per_block, channels)
 _VGG_CFG = {
@@ -70,11 +74,11 @@ def vgg19_preprocess(images: torch.Tensor) -> torch.Tensor:
     """[-1, 1] images -> Keras VGG19 'caffe' preprocessing: scale to
     [0, 255], reverse the channels, subtract the BGR ImageNet means."""
     x = ((images + 1.0) * 127.5).flip(-1)
-    return x - torch.tensor([103.939, 116.779, 123.68], dtype=x.dtype, device=x.device)
+    return x - device_constant("imagenet_bgr_mean", lambda: IMAGENET_BGR_MEAN, x.dtype, x.device)
 
 
 def vggface_preprocess(images: torch.Tensor) -> torch.Tensor:
     """[-1, 1] images -> VGGFace preprocessing: scale to [0, 255] and
     subtract the VGGFace means, no channel flip."""
     x = (images + 1.0) * 127.5
-    return x - torch.tensor([93.5940, 104.7624, 129.1863], dtype=x.dtype, device=x.device)
+    return x - device_constant("vggface_mean", lambda: VGGFACE_MEAN, x.dtype, x.device)

@@ -288,7 +288,7 @@ def launch_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
             _DTYPE_CODES[bias.dtype], float(eps), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"adain_forward launch failed ({plan}): cudaError {err}")
-    fused_adain_forward.launches += 1
+    cuda_build.count_launch(fused_adain_forward)
     return out, stats
 
 
@@ -340,7 +340,7 @@ def launch_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale
                 _DTYPE_CODES[out_dtypes[1]], torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"adain_backward launch failed ({plan}): cudaError {err}")
-        fused_adain_backward.launches += 1
+        cuda_build.count_launch(fused_adain_backward)
     return dx, dscale.to(scale.dtype), dbias.to(bias_dtype)
 
 

@@ -353,7 +353,7 @@ def launch_rotate_forward(grid: torch.Tensor, transform: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotate3d_forward launch failed ({plan}): cudaError {err}")
-    rotate_3d_grid_forward.launches += 1
+    cuda_build.count_launch(rotate_3d_grid_forward)
     return out
 
 
@@ -392,7 +392,7 @@ def launch_rotate_transpose(ct: torch.Tensor, transform: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotate3d_transpose launch failed ({plan}): cudaError {err}")
-    rotate_3d_grid_transpose.launches += 1
+    cuda_build.count_launch(rotate_3d_grid_transpose)
     return grad
 
 

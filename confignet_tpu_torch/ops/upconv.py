@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.initializers import init_kernel_
 from confignet_tpu_torch.ops.conv3d import conv_channels_last, promote
 from confignet_tpu_torch.ops.resample import upsample2d_nearest, upsample3d_nearest
@@ -40,8 +41,9 @@ _T_K4 = (
 )
 
 
-def _taps(mats, kernel: torch.Tensor):
-    return [torch.as_tensor(m, dtype=kernel.dtype, device=kernel.device) for m in mats]
+def _taps(name: str, mats, kernel: torch.Tensor):
+    return [device_constant((name, r), lambda m=m: m, kernel.dtype, kernel.device)
+            for r, m in enumerate(mats)]
 
 
 def up2_conv2d_subpixel(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -52,7 +54,7 @@ def up2_conv2d_subpixel(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError("2D subpixel path is derived for k=4")
     co = weight.shape[0]
     kernel = weight.permute(2, 3, 1, 0)  # HWIO, as the derivation is written
-    t = _taps(_T_K4, kernel)
+    t = _taps("upconv_k4", _T_K4, kernel)
     phases = [torch.einsum("ay,bx,yxio->abio", t[ry], t[rx], kernel)
               for ry, rx in itertools.product((0, 1), (0, 1))]
     kp = torch.cat(phases, dim=-1).permute(3, 2, 0, 1)  # (4*Co, Ci, 3, 3)
@@ -71,7 +73,7 @@ def up2_conv3d_subpixel(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError("3D subpixel path is derived for k=3")
     co = weight.shape[0]
     kernel = weight.permute(2, 3, 4, 1, 0)  # DHWIO
-    t = _taps(_T_K3, kernel)
+    t = _taps("upconv_k3", _T_K3, kernel)
     phase_list = list(itertools.product((0, 1), repeat=3))
     phases = [torch.einsum("ad,bh,cw,dhwio->abcio", t[rd], t[rh], t[rw], kernel)
               for rd, rh, rw in phase_list]

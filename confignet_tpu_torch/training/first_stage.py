@@ -6,9 +6,12 @@ player and the fused stage-1 training step (:meth:`_build_train_step`), plus
 the checkpoint files (:meth:`save`, :meth:`load`: the JAX package's json,
 npz, distribution pickle and log), the host-side sampling helpers, the
 latent-manipulation API, image generation and the fused generator ->
-InceptionV3 features of FID/KID (:meth:`_metric_features_for_latents`).  The
-``train()`` loop with its metric schedule, logging and prefetch thread comes
-with the infrastructure slice.
+InceptionV3 features of FID/KID (:meth:`_metric_features_for_latents`), and
+the training loop (:meth:`ConfigNetFirstStage.train`; first_stage.py:711-1031):
+batches staged on the device by a prefetch thread, losses fetched a window
+at a time, and checkpoints (loss tables and plots, image panels, FID/KID,
+the weight files) run inline or on a worker thread from clones of the
+parameters.
 
 The step copies the JAX step's order: (a) the image-D update on hflipped
 real images against ``G(z, rot)`` from the pre-step generator, computed
@@ -29,18 +32,24 @@ from __future__ import annotations
 import copy
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from confignet_tpu_torch.core import initializers
+from confignet_tpu_torch.core.async_checkpoint import CheckpointWorker
 from confignet_tpu_torch.core.config import merge_configs
+from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.device import resolve_device
-from confignet_tpu_torch.core.images import batched_hflip
+from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, write_jpeg, write_png
+from confignet_tpu_torch.core.logging_utils import (
+    LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
 from confignet_tpu_torch.core.model_io import (
     check_not_reference_format, export_jax_params, export_jax_tensors, load_jax_params,
     load_model_weights, load_weights_orbax, save_model_weights, save_weights_orbax)
+from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.core.pickles import read_pickle, write_pickle
 from confignet_tpu_torch.losses.gan import (
     compute_discriminator_loss, compute_latent_discriminator_loss, eye_loss, gan_g_loss,
@@ -127,6 +136,20 @@ PLAYER_TREES: Dict[str, Tuple[str, ...]] = {
 
 Batch = Dict[str, Any]
 
+# the trees an image checkpoint renders, encodes and scores with
+INFERENCE_TREES = ("generator_smoothed", "synthetic_encoder", "real_encoder")
+
+# the ROADMAP item that brings the device mesh
+_MESH_NOT_PORTED = ("training over a device mesh needs parallel/ (ROADMAP queue 1 item 7), "
+                    "which is not ported yet")
+
+
+def _use_async_checkpointing(config: Dict[str, Any]) -> bool:
+    """Checkpoints run on the worker thread unless the config asks for the
+    reference's inline block (the port trains in one process, so the JAX
+    package's multi-process exception does not arise)."""
+    return bool(config.get("async_checkpointing", True))
+
 # rotation_resample values that only the JAX package knows (its TPU
 # lowerings and its matmul form, confignet_tpu/models/generator.py:45-77,
 # 109); a JAX config carrying one loads with the port's automatic choice
@@ -185,10 +208,29 @@ class ConfigNetFirstStage:
         self._fine_tuned_generator_params = None
         self.g_losses: Dict[str, List[float]] = {}
         self.d_losses: Dict[str, List[float]] = {}
+        self.synth_d_losses: Dict[str, List[float]] = {}
+        self.latent_d_losses: Dict[str, List[float]] = {}
         self.metrics: Dict[str, List] = {}
         self.facemodel_param_distributions = None
-        # an InceptionMetrics for FID/KID, set by whoever scores the model
+        # an InceptionMetrics for FID/KID, set by setup_training (or whoever
+        # scores the model)
         self._inception_metric_object = None
+
+        self.n_checkpoint_rotations = 6
+        self.n_checkpoint_samples = 10
+        # checkpoint blocks dispatched (inline or to the worker)
+        self.checkpoint_events_run = 0
+        self.log_writer: Optional[TensorBoardWriter] = None
+        self.aml_sink: Optional[Callable[[str, float], None]] = None  # callable(name, value)
+        self._checkpoint_visualization_input: Optional[Dict[str, Any]] = None
+        self._generator_input_for_metrics: Optional[Dict[str, Any]] = None
+        self._train_step_fn = None
+        # async checkpoints: the worker thread, the inference modules it
+        # renders with (built once, refilled from each snapshot) and, while a
+        # job runs, those modules in place of the live ones
+        self._checkpoint_worker: Optional[CheckpointWorker] = None
+        self._snapshot_modules: Optional[Dict[str, torch.nn.Module]] = None
+        self._inference_params_override: Optional[Dict[str, torch.nn.Module]] = None
         self._build_modules()
         if initialize:
             self.initialize_network()
@@ -410,8 +452,10 @@ class ConfigNetFirstStage:
 
     def _sample_rotations(self, n: int) -> torch.Tensor:
         """Uniform in the configured ranges, in radians."""
-        ranges = torch.from_numpy(
-            np.asarray(self.config["rotation_ranges"], np.float32) * np.pi / 180.0).to(self.device)
+        degrees = tuple(tuple(r) for r in self.config["rotation_ranges"])
+        ranges = device_constant(("rotation_ranges", degrees),
+                                 lambda: np.asarray(degrees, np.float32) * np.pi / 180.0,
+                                 torch.float32, self.device)
         u = torch.rand((n, 3), generator=self._draws, device=self.device)
         return ranges[:, 0] + u * (ranges[:, 1] - ranges[:, 0])
 
@@ -487,8 +531,8 @@ class ConfigNetFirstStage:
         return losses
 
     def _build_train_step(self) -> Callable[[Batch], Dict[str, Dict[str, torch.Tensor]]]:
-        """``step(host_batch) -> {"g", "d", "synth_d", "latent_d"}`` loss
-        dicts (detached 0-d tensors on the device).  Updates the parameters,
+        """``step(host_batch) -> {"d", "g", "latent_d", "synth_d"}`` loss
+        dicts (detached 0-d tensors on the device, keys sorted).  Updates the parameters,
         the optimizers and the EMA generator in place.  A stage supplies the
         image-D fakes, the latent-D reals and the generator player's losses
         (:meth:`_image_d_fakes`, :meth:`_latent_d_reals`,
@@ -536,10 +580,12 @@ class ConfigNetFirstStage:
 
             # (e) EMA
             ema_update(self.generator_smoothed, self.generator)
-            return {name: {k: v.detach() for k, v in losses.items()}
-                    for name, losses in (("g", g_losses), ("d", d_losses),
-                                         ("synth_d", synth_d_losses),
-                                         ("latent_d", latent_d_losses))}
+            # keys sorted, as the JAX step's jit returns its dicts, so the
+            # loss tables' columns come in the same order
+            return {name: {k: v.detach() for k, v in sorted(losses.items())}
+                    for name, losses in (("d", d_losses), ("g", g_losses),
+                                         ("latent_d", latent_d_losses),
+                                         ("synth_d", synth_d_losses))}
 
         return step
 
@@ -574,10 +620,13 @@ class ConfigNetFirstStage:
         return n_d, n_g, multi, sub_batch
 
     def _batch_to_device(self, batch: Batch) -> Batch:
-        """Host arrays (and tuples of them) -> tensors (lists) on the device."""
+        """Host arrays (and tuples of them) -> tensors (lists) on the device;
+        tensors already there (a prefetched batch) pass through."""
         def put(value):
             if isinstance(value, (tuple, list)):
                 return [put(v) for v in value]
+            if isinstance(value, torch.Tensor):
+                return value.to(self.device)
             return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
 
         return {k: put(v) for k, v in batch.items()}
@@ -626,6 +675,287 @@ class ConfigNetFirstStage:
         return batch
 
     # ------------------------------------------------------------------
+    # The training loop (first_stage.py:711-861)
+    # ------------------------------------------------------------------
+
+    def setup_training(self, log_dir, synth_training_set, n_samples_for_metrics,
+                       real_training_set=None, mesh=None) -> None:
+        """The TensorBoard writer, the FID/KID harness and the fixed inputs
+        of the metrics and the checkpoint panels, drawn from the global
+        ``np.random`` in the JAX package's order: the metric sample's
+        indexes, the metric latents and rotations, the panel latents, then
+        the panel's face-model indexes."""
+        if mesh is not None:
+            raise NotImplementedError(_MESH_NOT_PORTED)
+        if real_training_set is None:
+            real_training_set = synth_training_set
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_writer = TensorBoardWriter(log_dir)
+
+        try:
+            from confignet_tpu_torch.metrics.inception import InceptionMetrics
+
+            self._inception_metric_object = InceptionMetrics(
+                self.config, real_training_set, n_samples_for_metrics=n_samples_for_metrics,
+                device=self.device)
+        except Exception as exc:  # the JAX trainer trains on without metrics too
+            print(f"WARNING: inception metrics disabled ({exc})")
+            self._inception_metric_object = None
+
+        self._generator_input_for_metrics = {
+            "latent": self.sample_latent_vector(n_samples_for_metrics),
+            "rotation": self.sample_rotations(n_samples_for_metrics),
+        }
+        checkpoint_latent = self.sample_latent_vector(self.n_checkpoint_samples)
+        checkpoint_latent = np.vstack([checkpoint_latent] * self.n_checkpoint_rotations)
+        ranges = np.asarray(self.config["rotation_ranges"], np.float32)
+        yaw = np.pi * np.linspace(ranges[0][0], ranges[0][1], self.n_checkpoint_rotations) / 180
+        checkpoint_rotation = np.zeros((self.n_checkpoint_rotations, 3), np.float32)
+        checkpoint_rotation[:, 0] = yaw
+        checkpoint_rotation = np.repeat(checkpoint_rotation, self.n_checkpoint_samples, axis=0)
+        self._checkpoint_visualization_input = {"latent": checkpoint_latent,
+                                                "rotation": checkpoint_rotation}
+
+        self.facemodel_param_distributions = synth_training_set.metadata_input_distributions
+        viz_idx = np.random.randint(0, synth_training_set.imgs.shape[0], self.n_checkpoint_samples)
+        self._checkpoint_visualization_input["facemodel_params"] = [
+            np.tile(p, (self.n_checkpoint_rotations, 1))
+            for p in self._facemodel_batch(synth_training_set, viz_idx)]
+        self._checkpoint_visualization_input["gt_imgs"] = np.copy(
+            synth_training_set.imgs[viz_idx]).astype(np.float32)
+
+    def train(self, real_training_set, synth_training_set, output_dir, log_dir,
+              n_steps=100000, n_samples_for_metrics=1000, aml_run=None,
+              mesh=None) -> Dict[str, float]:
+        """Train from :meth:`get_resume_step` to ``n_steps``; returns
+        ``{"loop_seconds", "steps_run"}``, the loop's wall time (the last
+        checkpoint's drain included) and its steps.  ``aml_run``: anything
+        with ``log(name, value)``, which then receives the latest losses,
+        metrics and timings in place of the loss plots."""
+        self.setup_training(log_dir, synth_training_set, n_samples_for_metrics,
+                            real_training_set=real_training_set, mesh=mesh)
+        return self._run_training(real_training_set, synth_training_set, output_dir, n_steps,
+                                  aml_run)
+
+    def _run_training(self, real_training_set, synth_training_set, output_dir, n_steps,
+                      aml_run) -> Dict[str, float]:
+        if aml_run is not None:
+            self.aml_sink = lambda name, value: aml_run.log(name, value)
+        start_step = self.get_resume_step()
+        if self._train_step_fn is None:
+            self._train_step_fn = self._build_train_step()
+
+        # No per-step device -> host fetch: the losses are fetched a window
+        # at a time, and the host batches are drawn and sent to the device on
+        # a background thread while the current step runs.
+        prefetcher = BatchPrefetcher(
+            lambda: self._sample_host_batch(real_training_set, synth_training_set),
+            depth=self.config.get("prefetch_depth", 2), device=self.device)
+        if _use_async_checkpointing(self.config):
+            self._checkpoint_worker = CheckpointWorker()
+        loop_start = time.perf_counter()
+        try:
+            self._train_loop(prefetcher, start_step, n_steps, output_dir)
+        finally:
+            prefetcher.close()
+            if self._checkpoint_worker is not None:
+                worker, self._checkpoint_worker = self._checkpoint_worker, None
+                worker.close()  # runs the pending jobs, re-raises a failure
+        # a resumed model whose history already reaches n_steps runs no step
+        return {"loop_seconds": time.perf_counter() - loop_start,
+                "steps_run": max(0, n_steps - start_step)}
+
+    def _train_loop(self, prefetcher, start_step, n_steps, output_dir) -> None:
+        flusher = LossFlusher(self.config.get("loss_print_period", 50))
+        image_p = self.config["image_checkpoint_period"]
+        metrics_p = self.config["metrics_checkpoint_period"]
+        window_start, window_len = time.perf_counter(), 0
+        for step in range(start_step, n_steps):
+            losses = self._train_step_fn(prefetcher.next())
+            window_len += 1
+
+            flush_due = flusher.append(losses)
+            at_checkpoint = step % image_p == 0 or step % metrics_p == 0
+            if not (flush_due or at_checkpoint or step == n_steps - 1):
+                continue
+
+            for fetched in flusher.flush():
+                update_loss_dict(self.g_losses, fetched["g"])
+                update_loss_dict(self.d_losses, fetched["d"])
+                update_loss_dict(self.synth_d_losses, fetched["synth_d"])
+                update_loss_dict(self.latent_d_losses, fetched["latent_d"])
+            # the flush waited for the device, so this is a true time per step
+            # averaged over the window
+            iter_time = (time.perf_counter() - window_start) / max(window_len, 1)
+            window_start = time.perf_counter()
+            window_len = 0
+            print("[step %d] [D loss: %f] [synth_D loss: %f] [latent_D_loss: %f] [G loss: %f]"
+                  % (step, self.d_losses["loss_sum"][-1], self.synth_d_losses["loss_sum"][-1],
+                     self.latent_d_losses["loss_sum"][-1], self.g_losses["loss_sum"][-1]))
+            if at_checkpoint:
+                self.run_checkpoints(output_dir, iter_time)
+
+    # ------------------------------------------------------------------
+    # Checkpoints and metrics (first_stage.py:863-1031)
+    # ------------------------------------------------------------------
+
+    def run_checkpoints(self, output_dir: str, iteration_time: float) -> None:
+        """The checkpoint block: inline (the reference's order,
+        confignet_first_stage.py:616-626) or, with ``async_checkpointing``,
+        on the worker thread from clones of the parameters taken here,
+        before the next step updates them in place."""
+        step_number = self.get_training_step_number()
+        image_due = step_number % self.config["image_checkpoint_period"] == 0
+        metrics_due = step_number % self.config["metrics_checkpoint_period"] == 0
+        if not (image_due or metrics_due):
+            return
+        self.checkpoint_events_run += 1
+
+        if self._checkpoint_worker is None:
+            losses = {"g": self.g_losses, "d": self.d_losses,
+                      "synth_d": self.synth_d_losses, "latent_d": self.latent_d_losses}
+            self._run_checkpoints_body(output_dir, iteration_time, step_number, image_due,
+                                       metrics_due, losses,
+                                       self.get_weights() if metrics_due else None)
+            return
+
+        # Clones on the device, queued on the current stream ahead of the next
+        # step's in-place updates.  An image-only checkpoint clones the
+        # inference trees; a save clones every tree.
+        inference_trees = [tree for tree in INFERENCE_TREES if tree in self.WEIGHT_TREES]
+        with torch.no_grad():
+            snapshot = {tree: {name: tensor.clone()
+                               for name, tensor in getattr(self, tree).state_dict().items()}
+                        for tree in (self.WEIGHT_TREES if metrics_due else inference_trees)}
+        if self._snapshot_modules is None:
+            self._snapshot_modules = {
+                tree: copy.deepcopy(getattr(self, tree)).requires_grad_(False).eval()
+                for tree in inference_trees}
+        # the loss histories are lists the main thread keeps appending to
+        losses = {group: {k: list(v) for k, v in history.items()}
+                  for group, history in (("g", self.g_losses), ("d", self.d_losses),
+                                         ("synth_d", self.synth_d_losses),
+                                         ("latent_d", self.latent_d_losses))}
+
+        def job():
+            modules = self._snapshot_modules
+            for tree, module in modules.items():
+                module.load_state_dict(snapshot[tree])
+            weights = None
+            if metrics_due:
+                weights = {tree: export_jax_tensors(
+                    (name, snapshot[tree][name]) for name, _ in getattr(self, tree).named_parameters())
+                    for tree in self.WEIGHT_TREES}
+            self._inference_params_override = modules
+            try:
+                self._run_checkpoints_body(output_dir, iteration_time, step_number, image_due,
+                                           metrics_due, losses, weights)
+            finally:
+                self._inference_params_override = None
+
+        self._checkpoint_worker.submit(job)
+
+    def _run_checkpoints_body(self, output_dir: str, iteration_time: float, step_number: int,
+                              image_due: bool, metrics_due: bool, losses: Dict[str, Dict],
+                              weights: Optional[Dict[str, Dict[str, np.ndarray]]]) -> None:
+        checkpoint_start = time.perf_counter()
+        if image_due:
+            log_loss_vals(losses["synth_d"], output_dir, step_number, "synth_discriminator_",
+                          self.log_writer, self.aml_sink)
+            log_loss_vals(losses["latent_d"], output_dir, step_number, "latent_discriminator_",
+                          self.log_writer, self.aml_sink)
+
+        if metrics_due:
+            self.calculate_metrics(output_dir, step_number=step_number)
+            log_dict = {"g_losses": losses["g"], "d_losses": losses["d"], "metrics": self.metrics}
+            self._write_checkpoint_files(weights, log_dict, os.path.join(output_dir, "checkpoints"),
+                                         str(step_number).zfill(6))
+
+        if image_due:
+            self.image_checkpoint(output_dir, step_number=step_number)
+            log_loss_vals(losses["g"], output_dir, step_number, "generator_", self.log_writer,
+                          self.aml_sink)
+            log_loss_vals(losses["d"], output_dir, step_number, "discriminator_", self.log_writer,
+                          self.aml_sink)
+
+            checkpoint_time = time.perf_counter() - checkpoint_start
+            print("Training iteration time: %f" % iteration_time)
+            print("Checkpoint time: %f" % checkpoint_time)
+            if self.log_writer is not None:
+                self.log_writer.scalar("perf/training_iter_time", iteration_time, step_number)
+                self.log_writer.scalar("perf/checkpoint_time", checkpoint_time, step_number)
+            if self.aml_sink is not None:
+                self.aml_sink("Training iter time", iteration_time)
+                self.aml_sink("Checkpoint time", checkpoint_time)
+
+    def image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+        """``output_imgs/<step>.png``: the panel latents rendered at six yaws
+        (rows), then the synthetic-data panel."""
+        if step_number is None:
+            step_number = self.get_training_step_number()
+        viz = self._checkpoint_visualization_input
+        generated = self.generate_images(viz["latent"], viz["rotation"])
+        combined = build_image_matrix(generated, self.n_checkpoint_rotations, self.n_checkpoint_samples)
+        img_dir = os.path.join(output_dir, "output_imgs")
+        os.makedirs(img_dir, exist_ok=True)
+        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + ".png"), combined)
+        if self.log_writer is not None:
+            self.log_writer.image("generated_images", combined, step_number)
+        self.synth_data_image_checkpoint(output_dir, step_number=step_number)
+
+    def synth_data_image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+        """``output_imgs/<step>_synth.jpg``: the synthetic ground truth, then
+        its face-model parameters rendered at six yaws."""
+        if step_number is None:
+            step_number = self.get_training_step_number()
+        viz = self._checkpoint_visualization_input
+        generated = self.generate_images_from_facemodel(viz["facemodel_params"], viz["rotation"])
+        generated = np.vstack((viz["gt_imgs"].astype(np.uint8), generated))
+        combined = build_image_matrix(generated, self.n_checkpoint_rotations + 1,
+                                      self.n_checkpoint_samples)
+        img_dir = os.path.join(output_dir, "output_imgs")
+        os.makedirs(img_dir, exist_ok=True)
+        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + "_synth.jpg"), combined)
+        if self.log_writer is not None:
+            self.log_writer.image("generated_synth_images", combined, step_number)
+
+    @staticmethod
+    def _imwrite(path: str, img_bgr: np.ndarray) -> None:
+        """Write a BGR panel with cv2 where it can be imported (with the JAX
+        package's parameters: PNG at zlib level 1), else with the port's own
+        PNG or baseline JPEG writer, by the path's extension."""
+        try:
+            import cv2
+        except ImportError:
+            (write_png if path.endswith(".png") else write_jpeg)(path, img_bgr)
+            return
+        params = [cv2.IMWRITE_PNG_COMPRESSION, 1] if path.endswith(".png") else []
+        cv2.imwrite(path, img_bgr, params)
+
+    def generate_output_for_metrics(self) -> np.ndarray:
+        m = self._generator_input_for_metrics
+        return self.generate_images(m["latent"], m["rotation"])
+
+    def _metric_latents_and_rotations(self):
+        """The (latent, rotation) pair FID/KID scores; stage 2 encodes its
+        fixed real images instead."""
+        m = self._generator_input_for_metrics
+        return m["latent"], m["rotation"]
+
+    def calculate_metrics(self, output_dir: str, step_number: Optional[int] = None) -> None:
+        """KID and FID of the metric latents' renders through the fused
+        generator -> Inception path, appended to ``metrics``."""
+        if self._inception_metric_object is None:
+            return
+        if step_number is None:
+            step_number = self.get_training_step_number()
+        latent, rotation = self._metric_latents_and_rotations()
+        features = self._metric_features_for_latents(latent, rotation)
+        self.metrics.setdefault("training_step_number", []).append(step_number)
+        self._inception_metric_object.update_and_log_metrics(
+            None, self.metrics, output_dir, self.aml_sink, self.log_writer, features=features)
+
+    # ------------------------------------------------------------------
     # Host-side sampling helpers, from the global np.random as the JAX
     # package's (the same seed gives the same bytes)
     # ------------------------------------------------------------------
@@ -663,7 +993,7 @@ class ConfigNetFirstStage:
         param_value = np.asarray(param_value, dtype=np.float32)
         if param_value.ndim == 1:
             param_value = param_value[np.newaxis]
-        encoded = self.synthetic_encoder.encode_single_param(
+        encoded = self._inference_synthetic_encoder().encode_single_param(
             param_name, torch.from_numpy(param_value).to(self.device))
         idxs = self.get_facemodel_param_idxs_in_latent(param_name)
         new_latents = np.copy(latents)
@@ -685,8 +1015,10 @@ class ConfigNetFirstStage:
         if unused_expr_idxs is not None:
             mask[:, list(unused_expr_idxs)] = 0.0
 
+        encoder = self._inference_synthetic_encoder()
+
         def loss_of(values):
-            return (target - self.synthetic_encoder.encode_single_param(param_name, values)).square().mean()
+            return (target - encoder.encode_single_param(param_name, values)).square().mean()
 
         values = torch.zeros((1, input_dim), device=self.device)
         with torch.enable_grad():
@@ -704,11 +1036,21 @@ class ConfigNetFirstStage:
     # ------------------------------------------------------------------
 
     def _inference_generator(self) -> HologanGenerator:
-        """The EMA generator, or the copy carrying the fine-tuned weights,
-        built when they were set."""
+        """The generator that renders: a checkpoint job's snapshot while one
+        runs, else the copy carrying the fine-tuned weights where they were
+        set, else the EMA generator."""
+        if self._inference_params_override is not None:
+            return self._inference_params_override["generator_smoothed"]
         if self._fine_tuned_generator is None:
             return self.generator_smoothed
         return self._fine_tuned_generator
+
+    def _inference_synthetic_encoder(self) -> SyntheticDataEncoder:
+        """The synthetic encoder of a checkpoint job's snapshot while one
+        runs, else the live one."""
+        if self._inference_params_override is not None:
+            return self._inference_params_override["synthetic_encoder"]
+        return self.synthetic_encoder
 
     @torch.inference_mode()
     def generate_images(self, latent_vectors, rotations, batch_chunk: int = 32) -> np.ndarray:
@@ -776,6 +1118,6 @@ class ConfigNetFirstStage:
         """Face-model parameters (one array per input, in config order) ->
         synthetic-encoder latents -> uint8 images."""
         with torch.inference_mode():
-            latents = self.synthetic_encoder(
+            latents = self._inference_synthetic_encoder()(
                 [torch.from_numpy(np.asarray(p, np.float32)).to(self.device) for p in facemodel_params])
         return self.generate_images(latents.float().cpu().numpy(), rotations)

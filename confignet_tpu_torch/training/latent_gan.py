@@ -10,8 +10,10 @@ G(noise), the G update against the already-updated D, then the EMA of G.
 Noise comes from a ``torch.Generator`` on the model's device through
 :meth:`LatentGAN._sample_noise`, which a caller may override to pin it.  The
 MLPs are plain torch: the JAX package runs them as XLA, with no Pallas
-kernel.  ``train``, ``setup_logs`` and the verbose logs (FID/KID, the
-TensorBoard writer) come with the metrics and infrastructure slices.
+kernel.  :meth:`LatentGAN.train` (latent_gan.py:184-285) embeds the training
+set once, keeps the embeddings on the device, fetches the losses a window
+at a time and, every ``verbose_log_period`` steps, renders a panel, saves
+``checkpoints/<step>`` and scores KID/FID of the ConfigNet's renders.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import torch
 from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.core.images import build_image_matrix
+from confignet_tpu_torch.core.logging_utils import LossFlusher, TensorBoardWriter
 from confignet_tpu_torch.core.model_io import (
     check_not_reference_format, export_jax_params, load_jax_params, load_model_weights,
     save_model_weights)
@@ -78,6 +82,12 @@ class LatentGAN:
             getattr(self, name).to(self.device).eval()
         self._draws = torch.Generator(device=self.device).manual_seed(int(self.config.get("seed", 0)))
         self._make_optimizers()
+        self.log_writer: Optional[TensorBoardWriter] = None
+        self.inputs_for_logs: Optional[Dict[str, np.ndarray]] = None
+        self.inputs_for_metrics: Optional[Dict[str, np.ndarray]] = None
+        self.metrics: Dict[str, list] = {}
+        self._inception_metric_object = None
+        self._train_step_fn: Optional[Callable[[torch.Tensor], Losses]] = None
 
     def _make_optimizers(self) -> None:
         """A fresh Adam per player (``set_weights`` resets them, as the JAX
@@ -128,8 +138,9 @@ class LatentGAN:
             self._update("generator", g_losses["loss_sum"])
 
             ema_update(self.generator_smoothed, self.generator)
-            return {"d": {k: v.detach() for k, v in d_losses.items()},
-                    "g": {k: v.detach() for k, v in g_losses.items()}}
+            # keys sorted, as the JAX step's jit returns its dicts
+            return {"d": {k: v.detach() for k, v in sorted(d_losses.items())},
+                    "g": {k: v.detach() for k, v in sorted(g_losses.items())}}
 
         return step
 
@@ -147,6 +158,104 @@ class LatentGAN:
             print(f"Extracting embeddings {start}:{end} of {n_imgs}")
             embeddings[start:end], _ = confignet_model.encode_images(training_set.imgs[start:end])
         return embeddings
+
+    # ------------------------------------------------------------------
+    # The training loop (latent_gan.py:184-285)
+    # ------------------------------------------------------------------
+
+    def setup_logs(self, log_dir, training_set, confignet_model) -> None:
+        """The TensorBoard writer, the fixed inputs of the panel and the
+        metrics (from the global ``np.random``, in the JAX package's order)
+        and the FID/KID harness over ``training_set``."""
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_writer = TensorBoardWriter(log_dir)
+        n_logged = self.config["logging_img_square_size"] ** 2
+        self.inputs_for_logs = {"latents": self.sample_input_latent_vector(n_logged),
+                                "rotations": np.zeros((n_logged, 3), np.float32)}
+        n_metrics = self.config["n_samples_for_metrics"]
+        self.inputs_for_metrics = {"latents": self.sample_input_latent_vector(n_metrics),
+                                   "rotations": confignet_model.sample_rotations(n_metrics)}
+        try:
+            from confignet_tpu_torch.metrics.inception import InceptionMetrics
+
+            self._inception_metric_object = InceptionMetrics(
+                confignet_model.config, training_set, n_samples_for_metrics=n_metrics,
+                device=self.device)
+        except Exception as exc:  # the JAX trainer trains on without metrics too
+            print(f"WARNING: inception metrics disabled ({exc})")
+            self._inception_metric_object = None
+
+    def train(self, training_set, confignet_model, output_dir, log_dir, n_iters: int) -> None:
+        """``n_iters`` steps on minibatches (``np.random.randint`` indexes)
+        of the training set's ConfigNet embeddings, held on the device."""
+        self.setup_logs(log_dir, training_set, confignet_model)
+        gt_embeddings = self.extract_embeddings(confignet_model, training_set)
+        gt_embeddings_dev = torch.from_numpy(gt_embeddings).to(self.device)
+        if self._train_step_fn is None:
+            self._train_step_fn = self._build_train_step()
+
+        batch_size = self.config["batch_size"]
+        verbose_p = self.config["verbose_log_period"]
+        # no per-step device -> host fetch: the losses come a window at a time
+        flusher = LossFlusher(self.config.get("loss_print_period", 50))
+        steps_pending = []
+        for step_number in range(n_iters):
+            idx = np.random.randint(0, gt_embeddings.shape[0], batch_size)
+            real = gt_embeddings_dev[torch.from_numpy(idx).to(self.device)]
+            losses = self._train_step_fn(real)
+            steps_pending.append(step_number)
+
+            flush_due = flusher.append(losses)
+            at_verbose = step_number % verbose_p == 0
+            if not (flush_due or at_verbose or step_number == n_iters - 1):
+                continue
+            fetched = flusher.flush()
+            for step, step_losses in zip(steps_pending, fetched):
+                self._write_scalar_logs(step, step_losses["d"], step_losses["g"])
+            print("[step: %d] [D loss: %f] [G loss: %f]"
+                  % (step_number, fetched[-1]["d"]["loss_sum"], fetched[-1]["g"]["loss_sum"]))
+            steps_pending = []
+            if at_verbose:
+                self._write_verbose_logs(output_dir, step_number, confignet_model)
+
+    def _write_scalar_logs(self, step_number, d_loss, g_loss) -> None:
+        if self.log_writer is not None:
+            for key, value in d_loss.items():
+                self.log_writer.scalar("discr_" + key, float(value), step_number)
+            for key, value in g_loss.items():
+                self.log_writer.scalar("gen_" + key, float(value), step_number)
+
+    def write_logs(self, output_dir, step_number, d_loss, g_loss, confignet_model) -> None:
+        self._write_scalar_logs(step_number, d_loss, g_loss)
+        if step_number % self.config["verbose_log_period"] != 0:
+            return
+        self._write_verbose_logs(output_dir, step_number, confignet_model)
+
+    def _write_verbose_logs(self, output_dir, step_number, confignet_model) -> None:
+        """The panel of the EMA generator's latents, ``checkpoints/<step>``,
+        and KID/FID of the ConfigNet's renders of the metric latents."""
+        predicted = self.generate_latents_smoothed(self.inputs_for_logs["latents"])
+        generated_images = confignet_model.generate_images(predicted, self.inputs_for_logs["rotations"])
+        square = self.config["logging_img_square_size"]
+        combined = build_image_matrix(generated_images, square, square)
+        if self.log_writer is not None:
+            self.log_writer.image("generated_images", combined, step_number)
+
+        checkpoint_dir = os.path.join(output_dir, "checkpoints")
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        self.save(checkpoint_dir, str(step_number).zfill(6))
+
+        if self._inception_metric_object is not None:
+            predicted = self.generate_latents_smoothed(self.inputs_for_metrics["latents"])
+            generated_images = confignet_model.generate_images(
+                predicted, self.inputs_for_metrics["rotations"])
+            kid, fid = self._inception_metric_object.get_metrics(generated_images)
+            self.metrics.setdefault("training_step_number", []).append(step_number)
+            self.metrics.setdefault("kid", []).append(float(kid))
+            self.metrics.setdefault("fid", []).append(float(fid))
+            if self.log_writer is not None:
+                self.log_writer.scalar("metrics/kid", kid, step_number)
+                self.log_writer.scalar("metrics/fid", fid, step_number)
 
     def sample_input_latent_vector(self, n_samples: int) -> np.ndarray:
         """Input noise from the global np.random, as the JAX package draws it."""

@@ -19,7 +19,11 @@ confignet/confignet_second_stage.py).  On top of the first stage:
 - the one-shot fine-tune (:meth:`ConfigNet.fine_tune_on_img`) optimises a
   copy of the EMA generator, the split embedding (pre-expression /
   expression / post-expression) and the rotations against perceptual and
-  GAN losses, one Adam step an iteration.
+  GAN losses, one Adam step an iteration;
+- the training loop (:meth:`ConfigNet.train`, second_stage.py:438-636) adds
+  a validation set (the autoencoding panel and the metric images, which
+  FID/KID score through the encoder), the controllability metric and the
+  perceptual autoencoding metric (``image_metrics.txt``).
 
 The training generator resamples with ``rotation_resample_train``: on CUDA
 the kernels, whose transform gradient is zero as the JAX package's TPU
@@ -37,7 +41,8 @@ import numpy as np
 import torch
 
 from confignet_tpu_torch.core import initializers
-from confignet_tpu_torch.core.images import batched_hflip, unit_range_to_uint8, write_png
+from confignet_tpu_torch.core.images import (
+    batched_hflip, build_image_matrix, uint8_to_unit_range, unit_range_to_uint8, write_png)
 from confignet_tpu_torch.core.model_io import export_jax_params
 from confignet_tpu_torch.losses.gan import eye_loss, gan_d_loss, gan_g_loss, normalized_latent_regression_loss
 from confignet_tpu_torch.losses.perceptual import PerceptualLoss
@@ -61,6 +66,8 @@ class ConfigNet(ConfigNetFirstStage):
         self._generator_ft: Optional[torch.nn.Module] = None
         # the loss sums of the last fine_tune_on_img call, 0-d tensors on the device
         self.fine_tune_losses = []
+        # the ControllabilityMetrics that setup_training makes from a judge
+        self.controllability_metrics = None
         super().__init__(config, device=device, initialize=initialize)
         self.config["model_type"] = self.MODEL_TYPE
 
@@ -203,8 +210,124 @@ class ConfigNet(ConfigNetFirstStage):
         return batch
 
     # ------------------------------------------------------------------
+    # The training loop (second_stage.py:438-636): the first stage's loop
+    # with a validation set, the controllability metric and the perceptual
+    # autoencoding metric
+    # ------------------------------------------------------------------
+
+    def setup_training(self, log_dir, synth_training_set, n_samples_for_metrics,
+                       attribute_classifier=None, real_training_set=None,
+                       validation_set=None, mesh=None) -> None:
+        """The first stage's setup, then (from the global ``np.random``) the
+        validation images of the autoencoding panel and of the metrics, and
+        a ``ControllabilityMetrics`` from ``attribute_classifier`` (a
+        ``CelebaAttributeClassifier`` or the path of one's json)."""
+        super().setup_training(log_dir, synth_training_set, n_samples_for_metrics,
+                               real_training_set=real_training_set, mesh=mesh)
+        if validation_set is not None:
+            viz_idx = np.random.randint(0, validation_set.imgs.shape[0], self.n_checkpoint_samples)
+            self._checkpoint_visualization_input["input_images"] = uint8_to_unit_range(
+                validation_set.imgs[viz_idx])
+            metric_idx = np.random.randint(0, validation_set.imgs.shape[0], n_samples_for_metrics)
+            self._generator_input_for_metrics["input_images"] = uint8_to_unit_range(
+                validation_set.imgs[metric_idx])
+        if attribute_classifier is not None:
+            from confignet_tpu_torch.metrics.controllability import ControllabilityMetrics
+
+            self.controllability_metrics = ControllabilityMetrics(self, attribute_classifier)
+
+    def train(self, real_training_set, synth_training_set, validation_set=None,
+              attribute_classifier=None, output_dir=None, log_dir=None,
+              n_steps=100000, n_samples_for_metrics=1000, aml_run=None,
+              mesh=None) -> Dict[str, float]:
+        """Train from :meth:`get_resume_step` to ``n_steps``; returns
+        ``{"loop_seconds", "steps_run"}`` (see ``ConfigNetFirstStage.train``)."""
+        self.setup_training(log_dir, synth_training_set, n_samples_for_metrics,
+                            attribute_classifier=attribute_classifier,
+                            real_training_set=real_training_set, validation_set=validation_set,
+                            mesh=mesh)
+        return self._run_training(real_training_set, synth_training_set, output_dir, n_steps,
+                                  aml_run)
+
+    def image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+        """The synthetic-data panel, then ``output_imgs/<step>.png``: the
+        validation images, their autoencodings at the predicted pose, and at
+        six yaws."""
+        if step_number is None:
+            step_number = self.get_training_step_number()
+        self.synth_data_image_checkpoint(output_dir, step_number=step_number)
+        viz = self._checkpoint_visualization_input
+        if "input_images" not in viz:
+            return
+        gt_imgs = viz["input_images"]
+        latent, pred_rotation = self.encode_images(gt_imgs)
+        imgs_pred_rot = self.generate_images(latent, pred_rotation)
+        imgs_sweep = self.generate_images(np.vstack([latent] * self.n_checkpoint_rotations),
+                                          viz["rotation"])
+        combined = np.vstack((unit_range_to_uint8(gt_imgs), imgs_pred_rot, imgs_sweep))
+        matrix = build_image_matrix(combined, self.n_checkpoint_rotations + 2,
+                                    self.n_checkpoint_samples)
+        img_dir = os.path.join(output_dir, "output_imgs")
+        os.makedirs(img_dir, exist_ok=True)
+        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + ".png"), matrix)
+        if self.log_writer is not None:
+            self.log_writer.image("generated_images", matrix, step_number)
+
+    def generate_output_for_metrics(self) -> np.ndarray:
+        imgs = self._generator_input_for_metrics.get("input_images")
+        if imgs is None:
+            return super().generate_output_for_metrics()
+        return self.generate_images(*self.encode_images(imgs))
+
+    def _metric_latents_and_rotations(self):
+        """FID/KID score the autoencoded metric images in stage 2 (reference:
+        confignet_second_stage.py:220-266)."""
+        imgs = self._generator_input_for_metrics.get("input_images")
+        if imgs is None:
+            return super()._metric_latents_and_rotations()
+        return self.encode_images(imgs)
+
+    def calculate_metrics(self, output_dir: str, step_number: Optional[int] = None) -> None:
+        """KID/FID, then on the validation images the controllability metric
+        and the perceptual autoencoding loss (chunks of 16, their mean
+        appended to ``metrics["perceptual_loss"]`` and ``image_metrics.txt``;
+        confignet_second_stage.py:226-253)."""
+        if step_number is None:
+            step_number = self.get_training_step_number()
+        super().calculate_metrics(output_dir, step_number=step_number)
+        input_images = (self._generator_input_for_metrics.get("input_images")
+                        if self._generator_input_for_metrics else None)
+        if input_images is None:
+            return
+        if self.controllability_metrics is not None:
+            self.controllability_metrics.update_and_log_metrics(
+                input_images, self.metrics, output_dir, self.aml_sink, self.log_writer)
+
+        generated = self.generate_images(*self.encode_images(input_images))
+        generated_f = uint8_to_unit_range(generated)
+        chunk = 16
+        losses = []
+        with torch.inference_mode():
+            for start in range(0, len(input_images), chunk):
+                gt = torch.from_numpy(np.ascontiguousarray(input_images[start:start + chunk]))
+                gen = torch.from_numpy(generated_f[start:start + chunk])
+                losses.append(self.perceptual_loss.loss_fn(gt.to(self.device), gen.to(self.device)))
+            perceptual = float(np.mean(torch.stack(losses).float().cpu().tolist()))
+        self.metrics.setdefault("perceptual_loss", []).append(perceptual)
+        if self.log_writer is not None:
+            self.log_writer.scalar("metrics/perceptual_loss", perceptual, step_number)
+        np.savetxt(os.path.join(output_dir, "image_metrics.txt"), self.metrics["perceptual_loss"])
+
+    # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
+
+    def _inference_real_encoder(self) -> RealEncoder:
+        """The encoder of a checkpoint job's snapshot while one runs, else
+        the live one."""
+        if self._inference_params_override is not None:
+            return self._inference_params_override["real_encoder"]
+        return self.real_encoder
 
     @torch.inference_mode()
     def encode_images(self, input_images, batch_chunk: int = 32) -> Tuple[np.ndarray, np.ndarray]:
@@ -216,6 +339,7 @@ class ConfigNet(ConfigNetFirstStage):
         if input_images.ndim == 3:
             input_images = input_images[np.newaxis]
 
+        encoder = self._inference_real_encoder()
         n = input_images.shape[0]
         chunk = min(batch_chunk, max(n, 1))
         lat_out, rot_out = [], []
@@ -224,7 +348,7 @@ class ConfigNet(ConfigNetFirstStage):
             pad = chunk - imgs.shape[0]
             if pad:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
-            lat, rot = self.real_encoder(torch.from_numpy(imgs).to(self.device))
+            lat, rot = encoder(torch.from_numpy(imgs).to(self.device))
             lat_out.append(lat.float().cpu().numpy()[:chunk - pad])
             rot_out.append(rot.float().cpu().numpy()[:chunk - pad])
         return np.concatenate(lat_out), np.concatenate(rot_out)

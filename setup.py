@@ -27,6 +27,13 @@ setup(
             "confignet-generate-dataset=confignet_tpu.apps.generate_dataset:main",
             "confignet-demo=confignet_tpu.apps.confignet_demo:main",
             "confignet-eval-controllability=confignet_tpu.apps.evaluate_confignet_controllability:main",
+            # the PyTorch port's entry points (they take --device, default cuda)
+            "confignet-torch-train=confignet_tpu_torch.apps.train_confignet:main",
+            "confignet-torch-train-latent-gan=confignet_tpu_torch.apps.train_latent_gan:main",
+            "confignet-torch-train-attribute-classifier="
+            "confignet_tpu_torch.apps.train_attribute_classifier:main",
+            "confignet-torch-eval-controllability="
+            "confignet_tpu_torch.apps.evaluate_confignet_controllability:main",
         ]
     },
 )

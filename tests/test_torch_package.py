@@ -25,8 +25,8 @@ def _imported_roots(path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / "confignet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                                     REPO / "chip_ab.py"]
+    files = sorted((REPO / "confignet_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "chip_ab.py", REPO / "chip_copies.py"]
     assert len(files) > 10
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -37,18 +37,24 @@ def test_port_sources_import_no_jax():
 LAZY = ("cv2", "matplotlib", "h5py")
 
 
+def _port_modules():
+    """Every module of the port, the CLIs in apps/ included."""
+    package = REPO / "confignet_tpu_torch"
+    return sorted(".".join(path.relative_to(REPO).with_suffix("").parts)
+                  for path in package.rglob("*.py") if path.name != "__init__.py")
+
+
 def test_importing_the_port_leaves_jax_unloaded():
-    """The port's modules and chip_smoke.py's imports load neither JAX nor
-    the JAX package, nor cv2, matplotlib or h5py.  This pytest process has
-    JAX loaded already (tests/conftest.py), so the check runs in a fresh
-    interpreter."""
-    code = ("import sys, confignet_tpu_torch.serving, confignet_tpu_torch.training.second_stage, "
-            "confignet_tpu_torch.training.latent_gan, confignet_tpu_torch.core.pickles, "
-            "confignet_tpu_torch.metrics.controllability, confignet_tpu_torch.metrics.inception, "
-            "confignet_tpu_torch.data.dataset, confignet_tpu_torch.data.procedural, "
-            "confignet_tpu_torch.apps.evaluate_confignet_controllability, chip_smoke; "
+    """Every module of the port (the CLIs included) and chip_smoke.py's
+    imports load neither JAX nor the JAX package, nor cv2, matplotlib or
+    h5py.  This pytest process has JAX loaded already (tests/conftest.py),
+    so the check runs in a fresh interpreter."""
+    modules = _port_modules()
+    assert {"confignet_tpu_torch.apps.train_confignet", "confignet_tpu_torch.data.prefetch",
+            "confignet_tpu_torch.core.async_checkpoint"} <= set(modules)
+    code = ("import importlib, sys; [importlib.import_module(m) for m in %r]; import chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
-            "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN + LAZY,))
+            "print(bad); sys.exit(1 if bad else 0)" % (modules, FORBIDDEN + LAZY))
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                             text=True, timeout=300)
     assert result.returncode == 0, result.stdout + result.stderr
@@ -82,6 +88,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     model = ConfigNet(dict(TINY_FIRST_STAGE_CONFIG), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ConfigNetServer(model)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The trainers and the prefetcher raise without a GPU, whether the
+    device is left out or named "cuda", rather than train on the CPU (the
+    CLIs: tests/test_torch_apps.py)."""
+    from confignet_tpu_torch.data.prefetch import BatchPrefetcher
+    from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+    from confignet_tpu_torch.training.latent_gan import LatentGAN
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        for make in (lambda: ConfigNetFirstStage(dict(TINY_FIRST_STAGE_CONFIG), device=device),
+                     lambda: LatentGAN({"latent_dim": 4}, device=device),
+                     lambda: BatchPrefetcher(lambda: {}, device=device)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
