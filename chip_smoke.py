@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--profile profile.txt]
     python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
+    python3 chip_smoke.py --loops-only | --demo-only  (step 13 or 14 only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; turns TF32 off.
@@ -134,7 +135,27 @@
    image_metrics.txt, the controllability keys, finite values); and
    LatentGAN.train() for 60 steps on the stage-2 model's embeddings, a
    verbose log every 30 (checkpoints 0 and 30, finite KID/FID).
-14. Prints the kernels' JSON record (launches per path, and times on the
+14. The demo path, at full width (the serving config with the reference's
+   gaze and HDRI input widths, heads given weights, seeded exemplar
+   distributions, a seeded LatentGAN(latent_dim=145), float32): writes a
+   reference release from the port's path tables (Keras weight lists of the
+   generator, the EMA generator, both discriminators, the latent regressor,
+   the latent discriminator, the synthetic encoder and the real encoder with
+   its ResNet50, the json, the distributions pickled under the reference's
+   module, and the LatentGAN's three lists) and loads it with load_confignet
+   and LatentGAN.load: every tree equal bit for bit, 32 renders identical.
+   Then confignet_demo in --test_mode, each mode with its launch counters
+   zeroed just before and read just after: run() with no input on that
+   release (2x3 grid; exactly 3, 0, 18, 0 rotation, transpose, AdaIN-forward
+   and AdaIN-backward launches), run_loop on 6 seeded 256px photo arrays
+   (2x3; 1, 0, 6, 0) and on one (1x1, with one fine-tune iteration on B; 1, 0,
+   12, 6), each timed; the no-input frame again on the plain path from the
+   same draws, within a mean abs uint8 difference of 1.0; and affine_warp
+   of 32 seeded 1024x1024x3 float32 photos to 256x256 on the card against
+   the same call on the CPU (1e-4), timed.  The card has no h5py and no cv2,
+   so the Keras .h5 import, HDRI fitting, generate_dataset and the demo's
+   --image_path reading are covered by the CPU tests only.
+15. Prints the kernels' JSON record (launches per path, and times on the
    float32 train step's path), then as the last line {"ok": true, "device":
    {...}}.
 
@@ -162,6 +183,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from confignet_tpu_torch.apps import confignet_demo
+from confignet_tpu_torch.core import pickles, reference_import
 from confignet_tpu_torch.core.model_io import attempt_reloading_checkpoint, load_confignet
 from confignet_tpu_torch.data.dataset import NeuralRendererDataset
 from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
@@ -173,6 +196,7 @@ from confignet_tpu_torch.ops import cuda_build
 from confignet_tpu_torch.ops.adain_cuda import (
     adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
     fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
+from confignet_tpu_torch.ops.warp import affine_warp
 from confignet_tpu_torch.ops.rotate_cuda import (
     device_limits as rotate_device_limits, forward_shared_bytes, launch_rotate_forward,
     launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
@@ -1084,6 +1108,15 @@ def check_renders(imgs, n: int, label: str) -> None:
         raise AssertionError(f"{label} gave constant images")
 
 
+def unequal_leaves(a, b) -> list:
+    """The tree/key of every leaf of two get_weights() results that differs
+    (a missing tree or key counts)."""
+    if set(a) != set(b) or any(set(a[t]) != set(b[t]) for t in a):
+        return ["the trees or their keys differ"]
+    return [f"{t}/{k}" for t, leaves in a.items() for k, v in leaves.items()
+            if not np.array_equal(v, b[t][k])]
+
+
 def round_trip_confignet(model, directory: str):
     """save() then load_confignet(): every weight tree equal bit for bit,
     the log and the distributions' draws equal, and 32 renders identical."""
@@ -1095,10 +1128,9 @@ def round_trip_confignet(model, directory: str):
     load_s = time.perf_counter() - t0
     if type(loaded) is not ConfigNet or loaded.device != model.device:
         raise AssertionError(f"load_confignet gave a {type(loaded).__name__} on {loaded.device}")
-    saved, back = model.get_weights(), loaded.get_weights()
-    unequal = [f"{tree}/{key}" for tree, leaves in saved.items() for key, value in leaves.items()
-               if not np.array_equal(value, back[tree][key])]
-    if set(saved) != set(back) or any(set(saved[t]) != set(back[t]) for t in saved) or unequal:
+    saved = model.get_weights()
+    unequal = unequal_leaves(saved, loaded.get_weights())
+    if unequal:
         raise AssertionError(f"the reloaded weights differ: {unequal[:10]}")
     if loaded.get_log_dict() != model.get_log_dict():
         raise AssertionError("the reloaded log differs")
@@ -2015,6 +2047,241 @@ def training_loops(card: str, kind: str, profile_stem=None):
                           seconds=seconds)
 
 
+# -- step 14: the demo path ----------------------------------------------------
+
+DEMO_PHOTOS = 6  # the photo-list mode's photos: one 2x3 grid
+RELEASE_RENDERS = 32
+WARP_BATCH = 32
+WARP_SOURCE = 1024  # a phone photo's face crop, warped to the model's 256px
+# (rotation, transpose, AdaIN forward, AdaIN backward) launches of each
+# --test_mode run of the demo (apps/confignet_demo.run_loop; the encoder and
+# the LatentGAN launch none):
+# - no input, 2x3: three renders of one 6-latent chunk (the LatentGAN's
+#   originals, the frame, the resample that the test mode's space key asks for);
+# - one photo: the frame (one chunk of 1), then one fine-tune iteration on B
+#   (the gather resample, six AdaIN sites forward and backward);
+# - six photos, 2x3: the frame (one chunk of 6); B needs a single photo.
+DEMO_LAUNCHES = {"no_input": (3, 0, 18, 0), "single_photo": (1, 0, 12, 6),
+                 "photo_list": (1, 0, 6, 0)}
+DEMO_DEVICE = "cuda"
+
+
+def demo_config(compute_dtype: str, **extra):
+    """The serving config with the reference's input widths for the gaze
+    (three Euler angles, the width of the demo's gaze offset) and the
+    illumination (the 50 PCA dims of the repo's HDRI turntable), which step
+    11's config shortens; latent_dim stays 145."""
+    config = serving_config(compute_dtype, **extra)
+    config["facemodel_inputs"] = dict(config["facemodel_inputs"],
+                                      **{"bone_rotations:left_eye": (3, 2), "hdri_embedding": (50, 20)})
+    return config
+
+
+class ReferencePickler(pickles._Pickler):
+    """Writes the port's distribution classes under the reference's module,
+    as a released model's pickle names them."""
+
+    write_modules = {"confignet_tpu_torch.data.distributions": "confignet.neural_renderer_dataset"}
+
+
+def _weight_list(tree, paths):
+    """A Keras weight list (an npz object array) of ``tree``'s leaves along
+    ``paths``; the dead learned-input kernel is zeros."""
+    items = [np.zeros((1, tree["learned_input"].shape[0]), np.float32)
+             if path == reference_import.DROP_ZERO_KERNEL else tree["/".join(path)]
+             for path in paths]
+    out = np.empty(len(items), dtype=object)
+    out[:] = items
+    return out
+
+
+def write_reference_release(model, gan, directory: str):
+    """The files of a released ConfigNet and LatentGAN in the reference's
+    format (confignet_first_stage.py:173-206, latent_gan.py:48-81), written
+    from the port's path tables: Keras weight lists in an npz, the config
+    json and the distributions pickled under confignet.neural_renderer_dataset.
+    Returns the two json paths."""
+    cfg, weights = model.config, model.get_weights()
+    n_res, from_rgb = cfg["n_discr_layers"], cfg["initial_from_rgb_layer_in_discr"]
+    generator_paths = reference_import.generator_weight_paths(cfg["output_shape"][0])
+    discriminator_paths = reference_import.discriminator_weight_paths(n_res, from_rgb, "grouped")
+    lists = {
+        "generator_weights": _weight_list(weights["generator"], generator_paths),
+        "generator_smoothed_weights": _weight_list(weights["generator_smoothed"], generator_paths),
+        "discriminator_weights": _weight_list(weights["discriminator"], discriminator_paths),
+        "synth_discriminator_weights": _weight_list(weights["synth_discriminator"],
+                                                    discriminator_paths),
+        "latent_regressor_weights": _weight_list(
+            weights["latent_regressor"], reference_import.latent_regressor_weight_paths(n_res, from_rgb)),
+        "latent_discriminator_weights": _weight_list(
+            weights["latent_discriminator"],
+            reference_import.mlp_weight_paths(cfg["n_latent_discr_layers"])),
+        "synthetic_encoder_weights": _weight_list(
+            weights["synthetic_encoder"], reference_import.synthetic_encoder_weight_paths(
+                model.facemodel_inputs_tuple, cfg["num_synth_encoder_layers"])),
+        "real_encoder_weights": _weight_list(weights["real_encoder"],
+                                             reference_import.real_encoder_weight_paths()),
+    }
+    np.savez(os.path.join(directory, "confignet.npz"), **lists)
+    with open(os.path.join(directory, "confignet.json"), "w") as fp:
+        json.dump(model._json_safe_config(), fp, indent=4)
+    with open(os.path.join(directory, "confignet_facemodel_distr.pck"), "wb") as fp:
+        ReferencePickler(fp, protocol=4).dump(model.facemodel_param_distributions)
+
+    gan_weights, gan_paths = gan.get_weights(), reference_import.mlp_weight_paths(gan.config["num_mlp_layers"])
+    np.savez(os.path.join(directory, "latent_gan.npz"),
+             generator_weights=_weight_list(gan_weights["generator"], gan_paths),
+             smoothed_generator_weights=_weight_list(gan_weights["generator_smoothed"], gan_paths),
+             discriminator_weights=_weight_list(gan_weights["discriminator"], gan_paths))
+    with open(os.path.join(directory, "latent_gan.json"), "w") as fp:
+        json.dump(gan.config, fp, indent=4)
+    return os.path.join(directory, "confignet.json"), os.path.join(directory, "latent_gan.json")
+
+
+def load_release(model, gan, directory: str):
+    """Write the release, load it with load_confignet and LatentGAN.load:
+    every tree equal to the source's bit for bit, the distributions' exemplars
+    equal, RELEASE_RENDERS renders identical.  Returns (the json paths, the
+    loaded ConfigNet, the loaded LatentGAN, the record)."""
+    t0 = time.perf_counter()
+    paths = write_reference_release(model, gan, directory)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_confignet(paths[0], device=DEMO_DEVICE)
+    loaded_gan = LatentGAN.load(paths[1], device=DEMO_DEVICE)
+    load_s = time.perf_counter() - t0
+    if type(loaded) is not ConfigNet or type(loaded_gan) is not LatentGAN:
+        raise AssertionError(f"the release loaded as {type(loaded).__name__}, {type(loaded_gan).__name__}")
+    unequal = unequal_leaves(model.get_weights(), loaded.get_weights())
+    unequal += unequal_leaves(gan.get_weights(), loaded_gan.get_weights())
+    if unequal:
+        raise AssertionError(f"the release's weights differ from the source's: {unequal[:10]}")
+    distributions_equal = all(
+        type(d) is type(model.facemodel_param_distributions[name])
+        and np.array_equal(d.exemplars, model.facemodel_param_distributions[name].exemplars)
+        for name, d in loaded.facemodel_param_distributions.items())
+    rng = np.random.default_rng(14)
+    latents = rng.normal(size=(RELEASE_RENDERS, loaded.config["latent_dim"])).astype(np.float32)
+    rotations = poses(RELEASE_RENDERS, rng)
+    same_renders = np.array_equal(model.generate_images(latents, rotations),
+                                  loaded.generate_images(latents, rotations))
+    if not distributions_equal or not same_renders:
+        raise AssertionError(f"the loaded release differs: distributions {distributions_equal}, "
+                             f"renders {same_renders}")
+    n_leaves = sum(len(leaves) for leaves in loaded.get_weights().values())
+    print(f"demo: wrote a reference release (Keras weight lists) in {write_s:.2f} s and loaded it in "
+          f"{load_s:.2f} s; all {n_leaves} ConfigNet leaves and the LatentGAN's equal bit for bit, "
+          f"the distributions equal, {RELEASE_RENDERS} renders identical", flush=True)
+    return paths, loaded, loaded_gan, dict(write_s=write_s, load_s=load_s, leaves=n_leaves)
+
+
+def demo_mode(label: str, fn, card: str, kind: str):
+    """fn() with DEMO_LAUNCHES[label] counted; the frame it returns must be a
+    finite uint8 grid that varies.  Returns (the frame, the launches, the
+    record)."""
+    t0 = time.perf_counter()
+    frame, launches = counted(fn, DEMO_LAUNCHES[label], f"demo {label}")
+    seconds = time.perf_counter() - t0
+    if frame is None or frame.dtype != np.uint8 or frame.ndim != 3 or frame.std() == 0:
+        raise AssertionError(f"demo {label} gave the frame {None if frame is None else frame.shape}")
+    print(f"demo {label}: one --test_mode frame {frame.shape} in {seconds:.2f} s on {kind} ({card}); "
+          f"launches {dict(zip(LAUNCH_NAMES, launches))}", flush=True)
+    return frame, launches, dict(seconds=seconds, frame_shape=list(frame.shape),
+                                 launches=dict(zip(LAUNCH_NAMES, launches)))
+
+
+def warp_run(card: str, kind: str) -> dict:
+    """affine_warp of WARP_BATCH seeded WARP_SOURCE^2 float32 photos to the
+    model's 256px on the card, against the same call on the CPU (1e-4), timed."""
+    rng = np.random.default_rng(15)
+    photos = rng.random((WARP_BATCH, WARP_SOURCE, WARP_SOURCE, 3), dtype=np.float32)
+    center = (WARP_SOURCE / 2, WARP_SOURCE / 2)
+    affines = []
+    for _ in range(WARP_BATCH):  # a similarity that puts a face crop of ~1000px at 256px
+        scale = 256 / rng.uniform(900, 1100)
+        angle = np.radians(rng.uniform(-15, 15))
+        A = scale * np.array([[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]])
+        shift = np.array([128.0, 128.0]) - A @ (np.asarray(center) + rng.normal(scale=20, size=2))
+        affines.append(np.concatenate([A, shift[:, None]], axis=1))
+    affines = np.asarray(affines, np.float32)
+    images, M = torch.from_numpy(photos).to(DEMO_DEVICE), torch.from_numpy(affines).to(DEMO_DEVICE)
+    out = affine_warp(images, M, (256, 256))
+    want = affine_warp(torch.from_numpy(photos), torch.from_numpy(affines), (256, 256))
+    err = (out.cpu() - want).abs().max().item()
+    if not err <= 1e-4 or out.shape != (WARP_BATCH, 256, 256, 3) or out.std().item() == 0:
+        raise AssertionError(f"affine_warp on the card: {tuple(out.shape)}, max abs error {err}")
+    ms = time_ms(lambda: affine_warp(images, M, (256, 256)))
+    print(f"demo warp: affine_warp of {WARP_BATCH} photos {WARP_SOURCE}^2 -> 256^2 float32 in "
+          f"{ms:.3f} ms on {kind} ({card}); max abs error against the CPU {err:.2e} (bound 1e-4)",
+          flush=True)
+    return dict(batch=WARP_BATCH, source=WARP_SOURCE, ms=ms, max_abs_err=err)
+
+
+def demo_path(card: str, kind: str):
+    """Step 14: the demo path at full width.  The card has no h5py and no
+    cv2, so the Keras .h5 import, HDRI fitting, generate_dataset and the
+    demo's --image_path reading are held to the JAX package by the CPU
+    tests only; the photo modes here start from photo arrays.  Returns (the
+    three modes' launches summed, the record)."""
+    t_step = time.perf_counter()
+    config = demo_config("float32")
+    dataset = FakeDataset(DEMO_PHOTOS + 2, config["output_shape"][0], {}, seed=14)
+    rng = np.random.default_rng(14)
+    model = ConfigNet(config)
+    give_encoder_heads_weights(model, dataset.imgs)
+    model.facemodel_param_distributions = {
+        name: fit_distribution(rng.normal(size=(256, dims[0])).astype(np.float32), "exemplar")
+        for name, dims in model.config["facemodel_inputs"].items()}
+    gan = LatentGAN({"latent_dim": model.config["latent_dim"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as directory:
+        (model_json, gan_json), loaded, loaded_gan, release = load_release(model, gan, directory)
+        del model, gan
+        argv = ["--test_mode", "--device", DEMO_DEVICE, "--confignet_model_path", model_json,
+                "--latent_gan_model_path", gan_json]
+        modes, total = {}, np.zeros(4, np.int64)
+
+        np.random.seed(140)
+        _, launches, modes["no_input"] = demo_mode(
+            "no_input", lambda: confignet_demo.run(argv), card, kind)
+        total += launches
+
+        # the no-input loop on the loaded release and on a plain-path copy, from the same draws
+        plain = ConfigNet(demo_config("float32", rotation_resample="gather", adain_impl="plain"),
+                          initialize=False)
+        plain.set_weights(loaded.get_weights())
+        plain.facemodel_param_distributions = loaded.facemodel_param_distributions
+        frames = []
+        for confignet, expected in ((loaded, DEMO_LAUNCHES["no_input"]), (plain, (0, 0, 0, 0))):
+            np.random.seed(141)
+            frames.append(counted(lambda: confignet_demo.run_loop(
+                confignet_demo.parse_args(argv), None, loaded_gan, confignet), expected,
+                "demo no_input compared")[0])
+        del plain
+        diff = np.abs(frames[0].astype(int) - frames[1].astype(int))
+        e2e = float(diff.mean())
+        print(f"demo float32 kernel vs plain path: no-input frame mean abs uint8 difference "
+              f"{e2e:.4f} (max {int(diff.max())}), bound 1.0", flush=True)
+        if not e2e < 1.0:
+            raise AssertionError(f"demo frames: kernel path and plain path disagree: {e2e}")
+
+        photos = list(dataset.imgs[:DEMO_PHOTOS])
+        _, launches, modes["photo_list"] = demo_mode("photo_list", lambda: confignet_demo.run_loop(
+            confignet_demo.parse_args(argv), photos, None, loaded), card, kind)
+        total += launches
+        _, launches, modes["single_photo"] = demo_mode("single_photo", lambda: confignet_demo.run_loop(
+            confignet_demo.parse_args(argv), [dataset.imgs[DEMO_PHOTOS]], None, loaded), card, kind)
+        total += launches
+        if loaded._fine_tuned_generator_params is None or len(loaded.fine_tune_losses) != 1:
+            raise AssertionError("the single-photo mode did not fine-tune")
+    del loaded, loaded_gan
+    torch.cuda.empty_cache()
+    warp = warp_run(card, kind)
+    seconds = time.perf_counter() - t_step
+    print(f"demo: step 14 took {seconds:.1f} s", flush=True)
+    return tuple(int(n) for n in total), dict(release=release, modes=modes, e2e_mean_abs_uint8=e2e,
+                                              warp=warp, seconds=seconds)
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -2060,6 +2327,9 @@ def main() -> int:
     parser.add_argument("--loops-only", action="store_true",
                         help="only build the kernels and run step 13, the train() loops, then stop "
                         "(no kernels line and no result line)")
+    parser.add_argument("--demo-only", action="store_true",
+                        help="only build the kernels and run step 14, the demo path, then stop "
+                        "(no kernels line and no result line)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -2095,6 +2365,13 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "loops": loops}, indent=1))
         print(f"total {time.perf_counter() - t_start:.1f} s (step 13 only)")
+        return 0
+    if args.demo_only:
+        _, demo = demo_path(card, kind)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "demo": demo}, indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 14 only)")
         return 0
 
     # -- 3. kernel phases ------------------------------------------------------
@@ -2292,7 +2569,11 @@ def main() -> int:
     path_launches["train_loop"], loops = training_loops(card, kind, profile_stem)
     torch.cuda.empty_cache()
 
-    # -- 14. records -----------------------------------------------------------------
+    # -- 14. the demo path: a reference release, the three input modes, the warp --------
+    path_launches["demo"], demo = demo_path(card, kind)
+    torch.cuda.empty_cache()
+
+    # -- 15. records -----------------------------------------------------------------
     def times(phase_counts, dtype="float32"):
         """The phases at a path's shapes, each counted as often as the path
         launches it: error, times and bound of the path's launches."""
@@ -2347,7 +2628,8 @@ def main() -> int:
                "fine_tune": {"adain_cuda", "adain_backward_cuda"},
                "sample": {"rotate_cuda", "adain_cuda"},
                "evaluate": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
-               "train_loop": {item["name"] for item in kernels}}
+               "train_loop": {item["name"] for item in kernels},
+               "demo": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -2361,7 +2643,7 @@ def main() -> int:
              "train": [train_f32, train_bf16], "train_paths": train_paths,
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
-             "sampling": sampling, "evaluation": evaluation, "loops": loops,
+             "sampling": sampling, "evaluation": evaluation, "loops": loops, "demo": demo,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

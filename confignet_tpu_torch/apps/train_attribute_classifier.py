@@ -7,8 +7,9 @@ train_attribute_classifier.py), with the same flags plus ``--device``
         --training_set_path train.pck --validation_set_path val.pck \
         --output_dir out [--device cuda]
 
-``--backbones_dir`` (the Keras MobileNetV2 ``.h5``) raises
-NotImplementedError until the Keras import is ported (ROADMAP queue 1 item 7).
+``--backbones_dir`` names a directory of Keras ``.h5`` backbones; the
+MobileNetV2 trunk loads ``mobilenet_v2_notop.h5`` from it where it is there
+(``core/pretrained.py``; not with ``trainable_bn``).
 """
 from __future__ import annotations
 

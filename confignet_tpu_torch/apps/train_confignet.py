@@ -14,8 +14,10 @@ reference passes ``stage_1_training_steps`` to its stage-2 call,
 train_confignet.py:72).  ``--resume`` continues from the newest checkpoint
 under ``output_dir`` (stage 2) or ``output_dir/first_stage``.  The loss
 plots need matplotlib where the CLI runs (unless an AzureML run takes the
-values instead), as in the JAX package.  ``--backbones_dir`` raises
-NotImplementedError until the Keras import is ported (ROADMAP queue 1 item 7).
+values instead), as in the JAX package.  ``--backbones_dir`` names a
+directory of Keras ``.h5`` backbones: VGG19, VGGFace, the encoder's ResNet50
+and the FID/KID InceptionV3 each load their file where it is there, and keep
+their seeded weights where it is not (``core/pretrained.py``).
 """
 from __future__ import annotations
 

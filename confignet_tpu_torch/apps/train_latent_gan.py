@@ -6,8 +6,9 @@ with the same flags plus ``--device`` (default ``cuda``):
         --confignet_path model.json --training_set_path train.pck \
         --output_dir out [--device cuda]
 
-``--backbones_dir`` (the Keras InceptionV3 ``.h5``) raises
-NotImplementedError until the Keras import is ported (ROADMAP queue 1 item 7).
+``--backbones_dir`` names a directory of Keras ``.h5`` backbones; the
+FID/KID Inception loads ``inception_v3_notop.h5`` from it where it is there
+(``core/pretrained.py``).
 """
 from __future__ import annotations
 
@@ -53,12 +54,11 @@ def parse_args(args):
     from confignet_tpu_torch.data.dataset import NeuralRendererDataset
     from confignet_tpu_torch.training.latent_gan import LatentGAN
 
-    if args.backbones_dir is not None:
-        # the JAX CLI loads the Inception .h5 for FID/KID from here
-        raise NotImplementedError("loading Keras .h5 backbones (--backbones_dir) is not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
     training_set = NeuralRendererDataset.load(args.training_set_path)
     confignet_model = load_confignet(args.confignet_path, device=args.device)
+    if args.backbones_dir is not None:
+        # the FID/KID Inception reads inception_v3_notop.h5 from here
+        confignet_model.config["backbones_dir"] = args.backbones_dir
 
     config = {
         "latent_dim": confignet_model.config["latent_dim"],

@@ -23,10 +23,9 @@ A flax ``batch_stats`` collection (the running ``mean`` and ``var`` of a
 live BatchNorm) maps onto the buffers of those names, the same way
 (``collection="batch_stats"``).
 
-The JAX package's other weight formats are not read: the orbax directory
-needs JAX's libraries, and a reference-release npz (Keras weight lists)
-needs the Keras-order importer, which is not ported yet (ROADMAP.md queue 1
-item 7).  Both raise ``NotImplementedError``.
+A reference-release npz (Keras weight lists, :func:`npz_is_reference_format`)
+is read by ``core/reference_import``, which the classes' ``load`` call.  The
+orbax directory needs JAX's libraries and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -179,13 +178,6 @@ def npz_is_reference_format(npz_path: str) -> bool:
     return bool(files) and all(k.endswith("_weights") for k in files)
 
 
-def check_not_reference_format(npz_path: str) -> None:
-    if npz_is_reference_format(npz_path):
-        raise NotImplementedError(f"{npz_path} is a reference-release checkpoint (Keras weight "
-                                  "lists); importing those is not ported yet (ROADMAP.md queue 1 "
-                                  "item 7)")
-
-
 def save_weights_orbax(trees: Dict[str, Any], checkpoint_dir: str) -> None:
     raise NotImplementedError("the orbax checkpoint format needs JAX's libraries; the port writes "
                               "npz (checkpoint_format='npz')")
@@ -219,9 +211,10 @@ def attempt_reloading_checkpoint(output_dir: str, dnn_loader: Optional[Callable]
 
 
 def load_confignet(model_path: str, device: Optional[Union[str, torch.device]] = None):
-    """Load a checkpoint that either package wrote (``ConfigNetFirstStage``,
-    ``ConfigNet`` or ``LatentGAN``), by the ``model_type`` of its json, on
-    ``device`` (the GPU unless given)."""
+    """Load a checkpoint that either package wrote, or a reference release
+    (``ConfigNetFirstStage``, ``ConfigNet`` or ``LatentGAN``), by the
+    ``model_type`` of its json, on ``device`` (the GPU unless given).  Each
+    class's ``load`` sniffs the npz's format."""
     with open(model_path, "r") as fp:
         model_type = json.load(fp)["model_type"]
     if model_type == "ConfigNetFirstStage":

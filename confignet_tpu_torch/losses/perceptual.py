@@ -8,9 +8,8 @@
 The loss is the sum over taps of the MSE between the whole-batch flattened
 activations (reference: perceptual_loss.py:63-82).  The VGG is frozen: its
 parameters never require grad.  Weights are initialised from a seeded
-generator (no weights are fetched); the Keras ``.h5`` import comes with the
-infrastructure slice, so ``load_jax_params`` on :attr:`PerceptualLoss.vgg`
-is the way to carry trained weights in.
+generator (no weights are fetched); :meth:`PerceptualLoss.load_keras_weights`
+reads the standard Keras ``.h5`` file by layer name.
 """
 from __future__ import annotations
 
@@ -40,6 +39,11 @@ class PerceptualLoss(nn.Module):
                                dtype=dtype)
         initializers.initialize(self.vgg, torch.Generator().manual_seed(settings["seed"]))
         self.vgg.requires_grad_(False)
+
+    def load_keras_weights(self, h5_path: str) -> None:
+        from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_weights
+
+        load_into(self.vgg, lambda flat: load_keras_h5_weights(flat, h5_path))
 
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
         if self.model_type == "VGGFace":

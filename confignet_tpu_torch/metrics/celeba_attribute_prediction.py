@@ -24,9 +24,8 @@ binary accuracy.  As in the JAX package:
 - ``save`` writes the JAX files (``<name>.npz`` with the ``params`` and
   ``batch_stats`` trees under flax's paths, ``<name>.json`` with the logs
   and config), so a classifier moves between the packages both ways.
-
-The Keras MobileNetV2 ``.h5`` import (``backbones_dir``,
-``load_backbone_keras_weights``) is not ported yet and raises.
+- ``backbones_dir`` with ``mobilenet_v2_notop.h5`` loads the ImageNet
+  MobileNetV2 trunk (:meth:`CelebaAttributeClassifier.load_backbone_keras_weights`).
 """
 from __future__ import annotations
 
@@ -43,7 +42,10 @@ from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.model_io import (
     export_jax_params, load_jax_params, load_model_weights, save_model_weights)
-from confignet_tpu_torch.models.backbones.mobilenet import BatchNorm, MobileNetV2, mobilenet_preprocess
+from confignet_tpu_torch.core.pretrained import maybe_load
+from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_ordered
+from confignet_tpu_torch.models.backbones.mobilenet import (
+    BatchNorm, MobileNetV2, mobilenet_conv_bn_order, mobilenet_preprocess)
 from confignet_tpu_torch.models.blocks import Dense
 
 DEFAULT_CONFIG: Dict[str, Any] = {
@@ -124,9 +126,8 @@ class CelebaAttributeClassifier:
         initializers.initialize(self.module, torch.Generator().manual_seed(int(self.config.get("seed", 0))))
         self.module.to(self.device).eval()
         self._make_optimizer()
-        if self.config.get("backbones_dir") is not None:
-            raise NotImplementedError("loading Keras .h5 backbones (backbones_dir) is not ported "
-                                      "yet")
+        maybe_load(self.load_backbone_keras_weights, self.config.get("backbones_dir"),
+                   "mobilenet_v2")
 
     def _make_optimizer(self) -> None:
         self.optimizer = torch.optim.Adam(self.module.parameters(),
@@ -134,7 +135,18 @@ class CelebaAttributeClassifier:
                                           betas=(0.9, 0.999), eps=_EPS)
 
     def load_backbone_keras_weights(self, h5_path: str) -> None:
-        raise NotImplementedError("importing the Keras MobileNetV2 .h5 is not ported yet")
+        """Import the standard Keras MobileNetV2 ``.h5`` (ImageNet, notop)
+        into the trunk by creation order (the reference starts from the
+        ImageNet trunk, celeba_attribute_prediction.py:56); the optimizer
+        is reset."""
+        if self.config.get("trainable_bn"):
+            raise ValueError("trainable_bn=True uses live nn.BatchNorm trees; the Keras frozen-stat "
+                             "import targets FrozenBatchNorm params. Train from scratch or set "
+                             "trainable_bn=False.")
+        conv_paths, bn_paths = mobilenet_conv_bn_order()
+        load_into(self.module.mobilenet, lambda flat: load_keras_h5_ordered(
+            flat, h5_path, conv_paths=conv_paths, bn_paths=bn_paths))
+        self._make_optimizer()
 
     # ------------------------------------------------------------------
     # Weights in the JAX package's layout

@@ -18,7 +18,10 @@ import torch
 
 from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.device import resolve_device
-from confignet_tpu_torch.models.backbones.inception import InceptionV3, inception_preprocess
+from confignet_tpu_torch.core.pretrained import maybe_load
+from confignet_tpu_torch.models.backbones.inception import (
+    InceptionV3, inception_conv_bn_order, inception_preprocess)
+from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_ordered
 
 
 class InceptionFeatureExtractor:
@@ -36,8 +39,13 @@ class InceptionFeatureExtractor:
         self.module.to(self.device).eval().requires_grad_(False)
 
     def load_keras_weights(self, h5_path: str) -> None:
-        raise NotImplementedError("importing the Keras InceptionV3 .h5 is not ported yet; load "
-                                  "weights with core/model_io.load_jax_params instead")
+        """Import the standard Keras InceptionV3 ``.h5`` (ImageNet, notop) by
+        creation order: keras.applications' global-counter layer names
+        (``conv2d_42``) cannot be matched by name."""
+        names = inception_conv_bn_order()
+        load_into(self.module, lambda flat: load_keras_h5_ordered(
+            flat, h5_path, conv_paths=[f"{n}/conv" for n in names],
+            bn_paths=[f"{n}/bn" for n in names]))
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """[0, 255] images (B, H, W, 3) on the device -> float32 (B, 2048)."""
@@ -130,9 +138,8 @@ class InceptionMetrics:
         self.n_samples_for_metrics = n_samples_for_metrics
         self.inception_feature_extractor = InceptionFeatureExtractor(
             confignet_config["output_shape"], device=device)
-        if confignet_config.get("backbones_dir") is not None:
-            raise NotImplementedError("loading Keras .h5 backbones (backbones_dir) is not ported "
-                                      "yet")
+        maybe_load(self.inception_feature_extractor.load_keras_weights,
+                   confignet_config.get("backbones_dir"), "inception_v3")
         idx = np.random.randint(0, dataset.imgs.shape[0], n_samples_for_metrics)
         cached = getattr(dataset, "inception_features", None)
         feature_dim = self.inception_feature_extractor.feature_dim

@@ -171,3 +171,26 @@ class InceptionV3(nn.Module):
 def inception_preprocess(images_uint8_or_float: torch.Tensor) -> torch.Tensor:
     """Keras 'tf' mode: [0, 255] -> [-1, 1], no channel flip."""
     return images_uint8_or_float.float() / 127.5 - 1.0
+
+
+def inception_conv_bn_order():
+    """The ``ConvBN`` module names in the creation order of the Keras
+    InceptionV3 graph (keras.applications.inception_v3 makes the same 94
+    conv2d_bn calls in this sequence), for the ordered h5 loader."""
+    names = [f"stem_{i}" for i in range(1, 6)]
+    for b in "bcd":
+        names += [f"mixed5{b}_{s}" for s in
+                  ("1x1", "5x5_1", "5x5_2", "3x3dbl_1", "3x3dbl_2", "3x3dbl_3", "pool")]
+    names += ["mixed6a_3x3", "mixed6a_3x3dbl_1", "mixed6a_3x3dbl_2", "mixed6a_3x3dbl_3"]
+    for b in "bcde":
+        names += [f"mixed6{b}_{s}" for s in
+                  ("1x1", "7x7_1", "7x7_2", "7x7_3",
+                   "7x7dbl_1", "7x7dbl_2", "7x7dbl_3", "7x7dbl_4", "7x7dbl_5", "pool")]
+    names += [f"mixed7a_{s}" for s in
+              ("3x3_1", "3x3_2", "7x7x3_1", "7x7x3_2", "7x7x3_3", "7x7x3_4")]
+    for b in "bc":
+        names += [f"mixed7{b}_{s}" for s in
+                  ("1x1", "3x3_1", "3x3_2a", "3x3_2b",
+                   "3x3dbl_1", "3x3dbl_2", "3x3dbl_3a", "3x3dbl_3b", "pool")]
+    assert len(names) == 94
+    return names

@@ -162,3 +162,21 @@ class MobileNetV2(nn.Module):
 def mobilenet_preprocess(images_0_255: torch.Tensor) -> torch.Tensor:
     """Keras 'tf' mode: [0, 255] -> [-1, 1]."""
     return images_0_255.float() / 127.5 - 1.0
+
+
+def mobilenet_conv_bn_order():
+    """(conv_paths, bn_paths) in Keras MobileNetV2 creation order, for the
+    ordered h5 loader: the stem, then expand (not in block 0), depthwise and
+    project of each inverted-residual block, then the 1280 head conv."""
+    conv_paths, bn_paths = ["stem"], ["stem_bn"]
+    for stage_idx, (expansion, _, repeats, _) in enumerate(_STAGES):
+        for block_idx in range(repeats):
+            name = f"stage{stage_idx}_block{block_idx}"
+            parts = (("expand", "depthwise", "project") if expansion != 1
+                     else ("depthwise", "project"))
+            conv_paths += [f"{name}/{part}" for part in parts]
+            bn_paths += [f"{name}/{part}_bn" for part in parts]
+    conv_paths.append("head")
+    bn_paths.append("head_bn")
+    assert len(conv_paths) == 52 and len(bn_paths) == 52
+    return conv_paths, bn_paths

@@ -146,3 +146,35 @@ def resnet50_preprocess(images_unit_range: torch.Tensor) -> torch.Tensor:
     x = (images_unit_range + 1.0) * 127.5
     x = x.flip(-1)
     return x - device_constant("imagenet_bgr_mean", lambda: IMAGENET_BGR_MEAN, x.dtype, x.device)
+
+
+def resnet50_keras_name_map(legacy: bool = False):
+    """Keras layer name -> (module path, "conv" | "bn") for
+    ``models/backbones/loader.load_keras_h5_mapped``.  Two generations of
+    Keras ResNet50 naming describe the same graph: ``conv2_block1_1_conv``
+    (keras.applications.resnet, 2.2.4+) and, with ``legacy``,
+    ``res2a_branch2a`` / ``bn2a_branch2a``."""
+    if legacy:
+        mapping = {"conv1": ("stem_conv", "conv"), "bn_conv1": ("stem_bn", "bn")}
+    else:
+        mapping = {"conv1_conv": ("stem_conv", "conv"), "conv1_bn": ("stem_bn", "bn")}
+    # (index in the current naming, branch in the legacy one, our sub-module suffix)
+    parts = ((0, "branch1", "shortcut"), (1, "branch2a", "1"), (2, "branch2b", "2"),
+             (3, "branch2c", "3"))
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        for block in range(1, n_blocks + 1):
+            ours = f"stage{stage + 1}_block{block}"
+            for idx, branch, which in parts:
+                if which == "shortcut" and block != 1:
+                    continue
+                conv_path = f"{ours}/shortcut_conv" if which == "shortcut" else f"{ours}/conv{which}"
+                bn_path = f"{ours}/shortcut_bn" if which == "shortcut" else f"{ours}/bn{which}"
+                if legacy:
+                    base = f"{stage + 2}{chr(ord('a') + block - 1)}"
+                    conv_name, bn_name = f"res{base}_{branch}", f"bn{base}_{branch}"
+                else:
+                    base = f"conv{stage + 2}_block{block}"
+                    conv_name, bn_name = f"{base}_{idx}_conv", f"{base}_{idx}_bn"
+                mapping[conv_name] = (conv_path, "conv")
+                mapping[bn_name] = (bn_path, "bn")
+    return mapping

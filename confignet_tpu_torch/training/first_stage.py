@@ -47,8 +47,9 @@ from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, w
 from confignet_tpu_torch.core.logging_utils import (
     LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
 from confignet_tpu_torch.core.model_io import (
-    check_not_reference_format, export_jax_params, export_jax_tensors, load_jax_params,
-    load_model_weights, load_weights_orbax, save_model_weights, save_weights_orbax)
+    export_jax_params, export_jax_tensors, load_jax_params, load_model_weights, load_weights_orbax,
+    npz_is_reference_format, save_model_weights, save_weights_orbax)
+from confignet_tpu_torch.core.pretrained import maybe_load
 from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.core.pickles import read_pickle, write_pickle
 from confignet_tpu_torch.losses.gan import (
@@ -300,10 +301,8 @@ class ConfigNetFirstStage:
                                                        **discriminator_kwargs)
         self.latent_discriminator = MLP(cfg["n_latent_discr_layers"], cfg["latent_dim"],
                                         cfg["latent_dim"], 1, dtype=self.compute_dtype)
-        if cfg.get("backbones_dir") is not None:
-            raise NotImplementedError("loading Keras .h5 backbones (backbones_dir) is not ported "
-                                      "yet; load VGG weights with load_jax_params instead")
         self.perceptual_loss = PerceptualLoss("imagenet", taps=cfg.get("perceptual_taps"))
+        maybe_load(self.perceptual_loss.load_keras_weights, cfg.get("backbones_dir"), "vgg19")
 
     def initialize_network(self) -> None:
         """Seeded init on the CPU (the same weights on every device); the EMA
@@ -419,17 +418,23 @@ class ConfigNetFirstStage:
 
     @classmethod
     def load(cls, file_path: str, device: Optional[Union[str, torch.device]] = None):
-        """Load a checkpoint written by either package (the json's path) on
-        ``device``, with its log and distributions where present.  An orbax
-        directory and a reference-release npz raise NotImplementedError."""
+        """Load a checkpoint written by either package, or a reference
+        release (Keras weight lists, sniffed from the npz's keys and read by
+        ``core/reference_import``; its ``model_type`` picks the class), from
+        the json's path on ``device``, with its log and distributions where
+        present.  An orbax directory raises NotImplementedError."""
         stem = os.path.splitext(file_path)[0]
         if not os.path.exists(stem + ".npz") and os.path.isdir(stem + ".orbax"):
             load_weights_orbax(stem + ".orbax")
-        check_not_reference_format(stem + ".npz")
-        with open(file_path, "r") as fp:
-            config = json.load(fp)
-        model = cls(_port_config(config), device=device, initialize=False)
-        model.set_weights(load_model_weights(stem + ".npz"))
+        if npz_is_reference_format(stem + ".npz"):
+            from confignet_tpu_torch.core.reference_import import load_reference_confignet
+
+            model = load_reference_confignet(file_path, device=device)
+        else:
+            with open(file_path, "r") as fp:
+                config = json.load(fp)
+            model = cls(_port_config(config), device=device, initialize=False)
+            model.set_weights(load_model_weights(stem + ".npz"))
 
         if os.path.exists(stem + "_log.json"):
             with open(stem + "_log.json", "r") as fp:

@@ -31,7 +31,7 @@ from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.images import build_image_matrix
 from confignet_tpu_torch.core.logging_utils import LossFlusher, TensorBoardWriter
 from confignet_tpu_torch.core.model_io import (
-    check_not_reference_format, export_jax_params, load_jax_params, load_model_weights,
+    export_jax_params, load_jax_params, load_model_weights, npz_is_reference_format,
     save_model_weights)
 from confignet_tpu_torch.losses.gan import compute_latent_discriminator_loss, gan_g_loss
 from confignet_tpu_torch.models.blocks import MLP
@@ -298,10 +298,13 @@ class LatentGAN:
 
     @classmethod
     def load(cls, file_path: str, device: Optional[Union[str, torch.device]] = None) -> "LatentGAN":
-        """Load a LatentGAN checkpoint written by either package on
-        ``device``; a reference-release npz raises NotImplementedError."""
+        """Load a LatentGAN checkpoint written by either package, or a
+        reference release (sniffed from the npz's keys), on ``device``."""
         npz_path = os.path.splitext(file_path)[0] + ".npz"
-        check_not_reference_format(npz_path)
+        if npz_is_reference_format(npz_path):
+            from confignet_tpu_torch.core.reference_import import load_reference_latent_gan
+
+            return load_reference_latent_gan(file_path, device=device)
         with open(file_path, "r") as fp:
             config = json.load(fp)
         gan = cls(config, device=device)

@@ -44,8 +44,11 @@ from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.images import (
     batched_hflip, build_image_matrix, uint8_to_unit_range, unit_range_to_uint8, write_png)
 from confignet_tpu_torch.core.model_io import export_jax_params
+from confignet_tpu_torch.core.pretrained import backbone_path, maybe_load
 from confignet_tpu_torch.losses.gan import eye_loss, gan_d_loss, gan_g_loss, normalized_latent_regression_loss
 from confignet_tpu_torch.losses.perceptual import PerceptualLoss
+from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_mapped
+from confignet_tpu_torch.models.backbones.resnet import resnet50_keras_name_map
 from confignet_tpu_torch.models.real_encoder import RealEncoder
 from confignet_tpu_torch.training.first_stage import PLAYER_TREES, Batch, ConfigNetFirstStage
 from confignet_tpu_torch.training.state import make_fine_tune_adam
@@ -79,11 +82,31 @@ class ConfigNet(ConfigNetFirstStage):
             rotation_ranges=tuple(tuple(r) for r in cfg["rotation_ranges"]),
             dtype=self.compute_dtype, trunk_norm=cfg.get("encoder_norm", "frozen"))
         self.perceptual_loss_face_reco = PerceptualLoss("VGGFace", taps=cfg.get("perceptual_taps"))
+        maybe_load(self.perceptual_loss_face_reco.load_keras_weights, cfg.get("backbones_dir"),
+                   "vggface")
 
     def initialize_network(self) -> None:
+        """The first stage's init, then the encoder's, its ResNet50 trunk
+        from ``resnet50_notop.h5`` where ``backbones_dir`` has it (the
+        reference encoder starts from the ImageNet ResNet50,
+        real_encoder.py:13)."""
         super().initialize_network()
         rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)) + 1)
         initializers.initialize(self.real_encoder, rng)
+        resnet_h5 = backbone_path(self.config.get("backbones_dir"), "resnet50")
+        if resnet_h5 is None:
+            return
+        if self.config.get("encoder_norm", "frozen") != "frozen":
+            raise ValueError("encoder_norm != 'frozen' uses GroupNorm trees; the Keras ResNet50 "
+                             "import targets FrozenBatchNorm params. Use the default encoder_norm "
+                             "with pretrained backbones.")
+        try:
+            load_into(self.real_encoder.resnet,
+                      lambda flat: load_keras_h5_mapped(flat, resnet_h5, resnet50_keras_name_map()))
+        except ValueError:
+            load_into(self.real_encoder.resnet, lambda flat: load_keras_h5_mapped(
+                flat, resnet_h5, resnet50_keras_name_map(legacy=True)))
+        print(f"Loaded pretrained resnet50 encoder trunk from {resnet_h5}")
 
     def _to_device(self) -> None:
         super()._to_device()

@@ -34,6 +34,8 @@ setup(
             "confignet_tpu_torch.apps.train_attribute_classifier:main",
             "confignet-torch-eval-controllability="
             "confignet_tpu_torch.apps.evaluate_confignet_controllability:main",
+            "confignet-torch-generate-dataset=confignet_tpu_torch.apps.generate_dataset:main",
+            "confignet-torch-demo=confignet_tpu_torch.apps.confignet_demo:main",
         ]
     },
 )

@@ -251,8 +251,12 @@ def test_save_load_across_packages(tmp_path):
     back = JaxClassifier.load(str(tmp_path / "port" / "judge.json"))
     np.testing.assert_allclose(back.predict_attributes(imgs), clf.predict_attributes(imgs),
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        CelebaAttributeClassifier(_config(False, backbones_dir=str(tmp_path)), device="cpu")
+    # a backbones_dir without mobilenet_v2_notop.h5 is skipped, as in JAX
+    skipped = CelebaAttributeClassifier(_config(False, backbones_dir=str(tmp_path)), device="cpu")
+    seeded = CelebaAttributeClassifier(_config(False), device="cpu").get_weights()
+    for tree, leaves in skipped.get_weights().items():
+        for key, value in leaves.items():
+            np.testing.assert_array_equal(value, seeded[tree][key])
 
 
 def test_train_writes_the_jax_file_set(tmp_path):

@@ -8,8 +8,9 @@ package's, on TINY_FIRST_STAGE_CONFIG on the CPU.
   abs uint8 difference below 1.0 (the bound of tests/test_serving.py).
 - Port -> JAX: the same checks the other way, through the JAX package's
   ``load_confignet``, whose unpickler reads the port's distribution pickle.
-- A reference-release checkpoint and an orbax directory raise
-  ``NotImplementedError``; ``attempt_reloading_checkpoint`` picks the newest
+- A reference-release checkpoint with a live learned-input kernel raises
+  ``ValueError``, an orbax directory ``NotImplementedError``;
+  ``attempt_reloading_checkpoint`` picks the newest
   json; a JAX config's JAX-only ``rotation_resample`` values load as "auto".
 - The sampling helpers give JAX's bytes after the same seed; the
   expression inversion matches JAX within atol 1e-4 at 50 iterations;
@@ -209,8 +210,15 @@ def test_distribution_pickle_refuses_other_package_names(tmp_path, module, name)
 
 def test_reference_and_orbax_checkpoints_are_refused(jax_checkpoints, tmp_path):
     jmodel, path = jax_checkpoints["first_stage"]
+    # a reference release loads (tests/test_torch_reference_import.py) unless
+    # the generator's dead learned-input kernel is live
     reference = write_reference_checkpoint(jmodel, str(tmp_path / "reference"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    npz = os.path.splitext(reference)[0] + ".npz"
+    with np.load(npz, allow_pickle=True) as data:
+        lists = {key: data[key] for key in data.files}
+    lists["generator_weights"][0] = np.ones_like(lists["generator_weights"][0])
+    np.savez(npz, **lists)
+    with pytest.raises(ValueError, match="learned-input kernel"):
         model_io.load_confignet(reference, device="cpu")
 
     orbax = tmp_path / "orbax"

@@ -118,9 +118,14 @@ def test_inception_metrics_draws_and_scores_match_jax(tmp_path):
     assert (tmp_path / "inception_metrics.png").exists()
     table = np.loadtxt(tmp_path / "inception_metrics.txt")
     np.testing.assert_allclose(table, [5, history["kid"][0], history["fid"][0]])
-    with pytest.raises(NotImplementedError):
-        inception.InceptionMetrics(dict(config, backbones_dir=str(tmp_path)), dataset, 2,
-                                   device="cpu")
+    # a backbones_dir without inception_v3_notop.h5 is skipped, as in JAX
+    np.random.seed(7)
+    skipped = inception.InceptionMetrics(dict(config, backbones_dir=str(tmp_path)), dataset,
+                                         n_samples_for_metrics=10, device="cpu")
+    np.testing.assert_array_equal(skipped.gt_inception_features, want.gt_inception_features)
+    for a, b in zip(skipped.inception_feature_extractor.module.parameters(),
+                    got.inception_feature_extractor.module.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_fused_metric_features_match_jax(extractors):

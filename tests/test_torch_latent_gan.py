@@ -9,8 +9,8 @@
   decay.
 - ``generate_latents`` at truncation 0.7 and 1.0 within atol 1e-5 of JAX's
   after the same ``np.random.seed``; checkpoints move both ways;
-  ``extract_embeddings`` chunks as JAX's does; a reference-release npz is
-  refused; ``LatentGAN({})`` raises ValueError.
+  ``extract_embeddings`` chunks as JAX's does; a reference-release npz with
+  the wrong count of weights is refused; ``LatentGAN({})`` raises ValueError.
 """
 import json
 import os
@@ -162,7 +162,8 @@ def test_reference_format_is_refused(tmp_path):
     np.savez(tmp_path / "ref.npz", generator_weights=weights, discriminator_weights=weights)
     with open(tmp_path / "ref.json", "w") as fp:
         json.dump({"model_type": "LatentGAN", "latent_dim": 12}, fp)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # sniffed as a reference release, whose MLPs have 3 layers of 2 weights
+    with pytest.raises(ValueError, match="expected 6 weights, got 2"):
         LatentGAN.load(str(tmp_path / "ref.json"), device="cpu")
 
 
