@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--profile profile.txt]
     python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
-    python3 chip_smoke.py --loops-only | --demo-only  (step 13 or 14 only)
+    python3 chip_smoke.py --loops-only | --demo-only | --mesh-only  (step 13, 14 or 15 only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; turns TF32 off.
@@ -155,7 +155,28 @@
    the same call on the CPU (1e-4), timed.  The card has no h5py and no cv2,
    so the Keras .h5 import, HDRI fitting, generate_dataset and the demo's
    --image_path reading are covered by the CPU tests only.
-15. Prints the kernels' JSON record (launches per path, and times on the
+15. The mesh path (data parallelism over torch.distributed, parallel/):
+   (a) the native host gather (runtime/) must have built with g++; it
+   gathers one stage-2 host batch's images at 256px, global batch 24, from a
+   64-image fake set byte-equal to numpy indexing, both timed on the host.
+   (b) A world-size-1 NCCL group, whose collectives are launched: one
+   float32 stage-2 step at full width over it against mesh=None from the
+   same weights, batch and draws under deterministic algorithms, losses,
+   gradients and weights bit-equal, with step 8's launches (4, 2, 24, 12)
+   and exactly 4 gradient all-reduces (one per player) and 4 sums of the
+   latent regression's batch statistics (2 forward, 2 backward); a
+   ConfigNetServer(mesh=...) rendering 32 latents bit-equal to the server
+   without a mesh (1, 0, 6, 0 launches, one gather); fine_tune_on_img(photo,
+   n_iters=2, mesh=...) ending bit-equal to the run without a mesh.  (c) Two
+   ranks on the one card (NCCL takes one rank a card, so gloo), spawned
+   processes: their float32 stage-2 step at global batch 24 (12 a rank)
+   against the single-process step from the same weights, host batch and
+   global draws, losses (the ranks' mean) within rtol 1e-3, each player's
+   gradient within a relative L2 distance of 1e-3 or 4x a one-site rounding
+   probe's (compare_train_paths' rule), the ranks bit-equal after the step;
+   two timed steps (steps/s, peak memory a rank); their server's 32 renders
+   within a mean abs uint8 difference of 1.0 of the single-process server's.
+16. Prints the kernels' JSON record (launches per path, and times on the
    float32 train step's path), then as the last line {"ok": true, "device":
    {...}}.
 
@@ -168,9 +189,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import itertools
 import json
+import multiprocessing
 import os
+import socket
 import struct
 import subprocess
 import sys
@@ -181,6 +205,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from confignet_tpu_torch.apps import confignet_demo
@@ -197,6 +222,8 @@ from confignet_tpu_torch.ops.adain_cuda import (
     adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
     fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
 from confignet_tpu_torch.ops.warp import affine_warp
+from confignet_tpu_torch.parallel import create_mesh
+from confignet_tpu_torch.runtime import gather_images, native_available
 from confignet_tpu_torch.ops.rotate_cuda import (
     device_limits as rotate_device_limits, forward_shared_bytes, launch_rotate_forward,
     launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
@@ -797,6 +824,48 @@ def pinned_draws(model, rng) -> tuple:
     return latents, rotations, [rng.random(TRAIN_BATCH) < 0.5 for _ in range(2)]
 
 
+def pinned_step(model, batch, draws, label: str) -> tuple:
+    """One train step of ``model`` on ``batch`` with its draw methods fed the
+    pinned (latents, rotations, flips) of :func:`pinned_draws` (global
+    arrays: over a mesh each rank cuts its rows).  Returns ({group/loss:
+    float}, the Adam first moments, the gradients when beta_1 = 0)."""
+    queues = [list(d) for d in draws]
+
+    def feeder(queue):
+        def draw(n):
+            value = queue.pop(0)
+            if value.shape[0] != n:
+                raise AssertionError(f"{label}: a draw of {n} met a pinned {value.shape}")
+            return torch.from_numpy(value).to(model.device)
+        return draw
+
+    model._sample_latent, model._sample_rotations, model._flip_mask = map(feeder, queues)
+    try:
+        losses = model._build_train_step()(batch)
+    finally:
+        del model._sample_latent, model._sample_rotations, model._flip_mask
+    if any(queues):
+        raise AssertionError(f"{label}: the step left pinned draws unused")
+    return ({f"{g}/{k}": float(v) for g, d in losses.items() for k, v in d.items()},
+            model.first_moments())
+
+
+def train_distances(result, plain, player_trees) -> dict:
+    """The largest relative error over the losses, and each player's
+    relative L2 gradient distance, of one ``pinned_step`` result from
+    another's (``plain``)."""
+    losses, moments = result
+    plain_losses, plain_moments = plain
+    # a loss that is exactly zero on both paths (a saturated GAN head) agrees
+    out = {"losses": max(abs(losses[k] - v) / max(abs(v), 1e-30) for k, v in plain_losses.items())}
+    for player, trees in player_trees.items():
+        keys = [(t, k) for t in trees for k in sorted(plain_moments[player][t])]
+        a = np.concatenate([moments[player][t][k].ravel() for t, k in keys])
+        b = np.concatenate([plain_moments[player][t][k].ravel() for t, k in keys])
+        out[player] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    return out
+
+
 def compare_train_paths(model_k, dataset, label: str) -> dict:
     """One float32 step of the kernel-path model and of a plain-path model
     of the same class (_rotate_plain, plain AdaIN) from the same weights,
@@ -819,22 +888,7 @@ def compare_train_paths(model_k, dataset, label: str) -> dict:
     draws = pinned_draws(model_k, np.random.default_rng(7))
 
     def step(model):
-        queues = [list(d) for d in draws]
-
-        def feeder(queue):
-            def draw(n):
-                value = queue.pop(0)
-                if value.shape[0] != n:
-                    raise AssertionError(f"{label}: a draw of {n} met a pinned {value.shape}")
-                return torch.from_numpy(value).cuda()
-            return draw
-
-        model._sample_latent, model._sample_rotations, model._flip_mask = map(feeder, queues)
-        losses = model._build_train_step()(batch)
-        if any(queues):
-            raise AssertionError(f"{label}: the step left pinned draws unused")
-        return ({f"{g}/{k}": float(v) for g, d in losses.items() for k, v in d.items()},
-                model.first_moments())
+        return pinned_step(model, batch, draws, label)
 
     results = {}
     for name, rotation in (("plain", "gather_plain"), ("probe", "gather_via_float64")):
@@ -854,17 +908,7 @@ def compare_train_paths(model_k, dataset, label: str) -> dict:
         raise AssertionError(f"{label}: the kernel-path train step launched {delta}")
 
     def distances(name):
-        losses, moments = results[name]
-        plain_losses, plain_moments = results["plain"]
-        # a loss that is exactly zero on both paths (a saturated GAN head) agrees
-        out = {"losses": max(abs(losses[k] - v) / max(abs(v), 1e-30)
-                             for k, v in plain_losses.items())}
-        for player, trees in model_k.PLAYER_TREES.items():
-            keys = [(t, k) for t in trees for k in sorted(plain_moments[player][t])]
-            a = np.concatenate([moments[player][t][k].ravel() for t, k in keys])
-            b = np.concatenate([plain_moments[player][t][k].ravel() for t, k in keys])
-            out[player] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-        return out
+        return train_distances(results[name], results["plain"], model_k.PLAYER_TREES)
 
     kernel, probe = distances("kernel"), distances("probe")
     bounds = {k: max(1e-3, 4 * v) for k, v in probe.items()}
@@ -917,7 +961,7 @@ def fine_tune_run(model, photo, label: str, card: str, kind: str):
     model.fine_tune_on_img(photo, n_iters=1)
     warmup_s = time.perf_counter() - t0
 
-    key = (False, 1)  # the step cache's key: (force_neutral_expression, n_imgs)
+    key = (False, 1, None)  # the step cache's key: (force_neutral_expression, n_imgs, mesh)
     step, per_iter = model._fine_tune_step_cache[key], []
 
     def counted(*args):
@@ -2282,6 +2326,415 @@ def demo_path(card: str, kind: str):
                                               warp=warp, seconds=seconds)
 
 
+# -- step 15: the mesh path ----------------------------------------------------
+
+MESH_DEVICE = "cuda:0"
+MESH_BACKEND = "nccl"  # the world-size-1 group's; two ranks on one card need gloo
+MESH_RANKS = 2  # part (c): two ranks on the one card
+MESH_TIMED_STEPS = 2  # the 2-rank steps timed after the compared one
+MESH_FINE_TUNE_ITERS = 2
+MESH_GATHER_REPS = 20
+MESH_SEED = 15
+# collectives of one stage-2 train step over a process group: one gradient
+# all-reduce per player, and the variance-normalised latent regression's
+# batch statistics (two sums forward, their two sums backward)
+STEP_COLLECTIVES = {"all_reduce_mean": 4, "all_reduce_sum": 4, "all_gather_rows": 0, "broadcast": 0}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def zero_collectives(mesh) -> None:
+    for name in mesh.launches:
+        mesh.launches[name] = 0
+
+
+def mesh_dataset_spec() -> tuple:
+    """FakeDataset's arguments: step 8's fake set, 64 seeded images at the
+    train config's width (256px) with its face-model inputs."""
+    return (64, TRAIN_CONFIG["output_shape"][0],
+            {name: dims[0] for name, dims in TRAIN_CONFIG["facemodel_inputs"].items()}, MESH_SEED)
+
+
+def flat_state(trees) -> dict:
+    """{tree: {path: array}} (or deeper) as {"tree|path": array}."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                walk(f"{prefix}|{key}" if prefix else key, value)
+        else:
+            out[prefix] = np.asarray(node)
+
+    walk("", trees)
+    return out
+
+
+def unequal_arrays(a: dict, b: dict) -> list:
+    """The keys whose arrays differ in any bit (or that only one side has)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                  or a[k].tobytes() != b[k].tobytes())
+
+
+def native_gather_run(dataset, card: str, kind: str) -> dict:
+    """(a) The native gather must have built (g++); it gathers one stage-2
+    host batch's images at the global batch (four gathers of 24, two of 12,
+    and the 24 D reals again with a flip mask) byte-equal to numpy
+    indexing, each timed over MESH_GATHER_REPS batches on the host."""
+    if not native_available():
+        raise AssertionError("the native gather did not build: g++ failed or is missing")
+    rng = np.random.RandomState(MESH_SEED)
+    n = dataset.imgs.shape[0]
+    indices = [rng.randint(0, n, size) for size in (TRAIN_BATCH,) * 4 + (TRAIN_BATCH // 2,) * 2]
+    flips = (rng.random_sample(TRAIN_BATCH) < 0.5).astype(np.uint8)
+
+    def native():
+        return [gather_images(dataset.imgs, i) for i in indices] + [
+            gather_images(dataset.imgs, indices[0], flips)]
+
+    def numpy_indexing():
+        flipped = dataset.imgs[indices[0]].copy()
+        flipped[flips.astype(bool)] = flipped[flips.astype(bool)][:, :, ::-1]
+        return [np.ascontiguousarray(dataset.imgs[i]) for i in indices] + [flipped]
+
+    got, want = native(), numpy_indexing()
+    if any(a.shape != b.shape or a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+        raise AssertionError("the native gather disagrees with numpy indexing")
+    times = {}
+    for name, fn in (("native", native), ("numpy", numpy_indexing), ("native_again", native)):
+        t0 = time.perf_counter()
+        for _ in range(MESH_GATHER_REPS):
+            fn()
+        times[name] = (time.perf_counter() - t0) / MESH_GATHER_REPS * 1e3
+    megabytes = sum(a.nbytes for a in got) / 1e6
+    rec = dict(megabytes=megabytes, native_ms=min(times["native"], times["native_again"]),
+               numpy_ms=times["numpy"], threads=os.cpu_count())
+    print(f"mesh native gather: one stage-2 batch's images ({megabytes:.1f} MB, "
+          f"{dataset.imgs.shape[1]}px, global batch {TRAIN_BATCH}) byte-equal to numpy; host time native {rec['native_ms']:.3f} ms, numpy "
+          f"{rec['numpy_ms']:.3f} ms a batch ({os.cpu_count()} host cores; card {kind}, {card})",
+          flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def process_group(backend: str, rank: int, world_size: int, port: int, device):
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world_size)
+    try:
+        yield create_mesh(device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def single_rank_group(dataset, card: str, kind: str) -> tuple:
+    """(b) A world-size-1 group (MESH_BACKEND, NCCL on the card), whose
+    collectives are launched: one float32 stage-2 step, a server's renders
+    and a fine-tune, each over the mesh and without it from the same
+    weights, inputs and draws, under deterministic algorithms; each pair
+    bit-equal.  The mesh step launches step 8's kernels and STEP_COLLECTIVES.
+    Each pair runs warm: under deterministic algorithms the first stage-2
+    step of a process differs bitwise from every later one from the same
+    weights (the D update's gradient; NVIDIA H100), so a warm-up call at the
+    same shapes comes first.  Returns (the step's
+    launches, the server's launches, the record)."""
+    rec = {}
+    if torch.device(MESH_DEVICE).type == "cuda":
+        torch.cuda.set_device(MESH_DEVICE)
+    with process_group(MESH_BACKEND, 0, 1, free_port(), MESH_DEVICE) as mesh, \
+            deterministic_algorithms():
+        # the train step
+        model = ConfigNet(train_config("float32"), device=MESH_DEVICE)
+        give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
+        weights = model.get_weights()
+        draws = pinned_draws(model, np.random.default_rng(MESH_SEED))
+        model._batch_rng = np.random.RandomState(MESH_SEED)
+        batch = model._sample_host_batch(dataset, dataset)
+        pinned_step(model, batch, draws, "mesh warm-up step")
+        model.set_weights(weights)
+        alone = pinned_step(model, batch, draws, "mesh step without a mesh")
+        alone_weights = flat_state(model.get_weights())
+        del model
+        torch.cuda.empty_cache()
+
+        model = ConfigNet(train_config("float32"), device=MESH_DEVICE, initialize=False)
+        model.set_weights(weights)
+        model._use_mesh(mesh)
+        model._batch_rng = np.random.RandomState(MESH_SEED)
+        mesh_batch = model._sample_host_batch(dataset, dataset)
+        if unequal_arrays(flat_state({k: dict(enumerate(v)) if isinstance(v, tuple) else v
+                                      for k, v in batch.items()}),
+                          flat_state({k: dict(enumerate(v)) if isinstance(v, tuple) else v
+                                      for k, v in mesh_batch.items()})):
+            raise AssertionError("mesh step: the host batch differs from the one without a mesh")
+        zero_collectives(mesh)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        over_mesh = pinned_step(model, mesh_batch, draws, "mesh step over a world-size-1 group")
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        train_launches, collectives = launch_counts(), dict(mesh.launches)
+        if train_launches != TRAIN_STEP_LAUNCHES or collectives != STEP_COLLECTIVES:
+            raise AssertionError(f"mesh step: launches {train_launches}, collectives {collectives}; "
+                                 f"expected {TRAIN_STEP_LAUNCHES}, {STEP_COLLECTIVES}")
+        differ = [k for k, v in alone[0].items() if over_mesh[0][k] != v]
+        differ += unequal_arrays(flat_state(alone[1]), flat_state(over_mesh[1]))
+        differ += unequal_arrays(alone_weights, flat_state(model.get_weights()))
+        if differ:
+            raise AssertionError(f"mesh step: not bit-equal to the step without a mesh: {differ[:10]}")
+        rec["train_step"] = dict(launches=dict(zip(LAUNCH_NAMES, train_launches)),
+                                 collectives=collectives, seconds=step_s,
+                                 leaves_compared=len(alone_weights))
+        print(f"mesh world-size-1 {MESH_BACKEND} group: one float32 stage-2 step (batch {TRAIN_BATCH}) "
+              f"bit-equal to mesh=None (losses, {len(alone_weights)} weight leaves, the gradients); "
+              f"launches {train_launches}, collectives {collectives}; {step_s:.3f} s on {kind} ({card})",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+        # the server
+        rng = np.random.default_rng(MESH_SEED)
+        model = ConfigNet(serving_config("float32"), device=MESH_DEVICE)
+        give_encoder_heads_weights(model, dataset.imgs[:8])
+        latents = rng.normal(size=(SERVE_CHUNK, model.config["latent_dim"])).astype(np.float32)
+        rotations = poses(SERVE_CHUNK, rng)
+        alone_server = ConfigNetServer(model, chunk=SERVE_CHUNK, device=MESH_DEVICE)
+        alone_server.generate(latents, rotations)  # warm-up
+        alone = alone_server.generate(latents, rotations)
+        del alone_server
+        server = ConfigNetServer(model, chunk=SERVE_CHUNK, mesh=mesh)
+        zero_collectives(mesh)
+        renders, serve_launches = counted(lambda: server.generate(latents, rotations), CHUNK_LAUNCHES,
+                                          "mesh server")
+        if mesh.launches["all_gather_rows"] != 1 or not np.array_equal(renders, alone):
+            raise AssertionError(f"mesh server: {mesh.launches}, renders bit-equal "
+                                 f"{np.array_equal(renders, alone)}")
+        check_renders(renders, SERVE_CHUNK, "mesh server")
+        rec["server"] = dict(launches=dict(zip(LAUNCH_NAMES, serve_launches)),
+                             collectives=dict(mesh.launches))
+        print(f"mesh world-size-1 server: {SERVE_CHUNK} renders bit-equal to the server without a "
+              f"mesh; launches {serve_launches}", flush=True)
+        del server
+
+        # the fine-tune
+        photo = dataset.imgs[0]
+        model.fine_tune_on_img(photo, n_iters=1)  # warm-up
+        model._fine_tuned_generator_params = None
+        ends = []
+        for over in (None, mesh):
+            expected = tuple(MESH_FINE_TUNE_ITERS * n for n in FINE_TUNE_ITER_LAUNCHES)
+            (embeddings, rotations), _ = counted(lambda: model.fine_tune_on_img(
+                photo, n_iters=MESH_FINE_TUNE_ITERS, mesh=over), expected, f"mesh fine-tune {over}")
+            ends.append({"embeddings": embeddings, "rotations": rotations,
+                         **{f"generator|{k}": v.cpu().numpy()
+                            for k, v in model._fine_tuned_generator_params.items()}})
+            model._fine_tuned_generator_params = None
+        differ = unequal_arrays(*ends)
+        if differ:
+            raise AssertionError(f"mesh fine-tune: not bit-equal to the run without a mesh: {differ[:10]}")
+        rec["fine_tune"] = dict(iterations=MESH_FINE_TUNE_ITERS, leaves_compared=len(ends[0]))
+        print(f"mesh world-size-1 fine-tune: {MESH_FINE_TUNE_ITERS} iterations end bit-equal to the "
+              f"run without a mesh ({len(ends[0])} arrays)", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return train_launches, serve_launches, rec
+
+
+def gloo_rank(rank: int, port: int, spec: dict) -> None:
+    """(c) One of MESH_RANKS ranks on the one card (a spawned process; every
+    setting arrives in ``spec``): the compared stage-2 step from the saved
+    weights and global draws, MESH_TIMED_STEPS timed steps, and the renders
+    of a server built before the steps.  Writes ``result_<rank>.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats()
+    directory = Path(spec["directory"])
+    with np.load(directory / "inputs.npz") as npz:
+        arrays = dict(npz)
+    weights = {}
+    for key, value in arrays.items():
+        if key.startswith("weights|"):
+            _, tree, path = key.split("|", 2)
+            weights.setdefault(tree, {})[path] = value
+    draws = ([], [], [arrays[f"flips|{i}"] for i in range(spec["n_flips"])])
+    out = {}
+    with process_group("gloo", rank, MESH_RANKS, port, device) as mesh:
+        model = ConfigNet(spec["config"], device=device, initialize=False)
+        model.set_weights(weights)
+        model._use_mesh(mesh)
+        server = ConfigNetServer(model, chunk=spec["chunk"], mesh=mesh)  # the weights before the steps
+        dataset = FakeDataset(*spec["dataset"])
+        model._batch_rng = np.random.RandomState(spec["batch_seed"])
+        batch = model._sample_host_batch(dataset, dataset)
+        zero_launch_counts()
+        zero_collectives(mesh)
+        losses, moments = pinned_step(model, batch, draws, f"gloo rank {rank}")
+        out["step_launches"] = np.array(launch_counts())
+        out["step_collectives"] = np.array([mesh.launches[k] for k in sorted(mesh.launches)])
+        out.update({f"loss|{k}": np.asarray(v) for k, v in losses.items()})
+        state = flat_state({"moments": moments, "weights": model.get_weights()})
+        digest = hashlib.sha256()
+        for key in sorted(state):
+            digest.update(key.encode())
+            digest.update(state[key].tobytes())
+        out["digest"] = np.array(digest.hexdigest())
+        if rank == 0:
+            out.update({f"moments|{k}": v for k, v in flat_state(moments).items()})
+        del state, moments
+
+        step = model._build_train_step()
+        batches = [model._sample_host_batch(dataset, dataset) for _ in range(spec["timed_steps"])]
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for timed in batches:
+            check_finite(step(timed), f"gloo rank {rank}")
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        out["steps_seconds"] = np.asarray(time.perf_counter() - t0)
+        zero_launch_counts()
+        out["renders"] = server.generate(arrays["latents"], arrays["rotations"])
+        out["serve_launches"] = np.array(launch_counts())
+        out["peak_memory_gb"] = np.asarray(torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0)
+    np.savez(directory / f"result_{rank}.npz", **out)
+
+
+def two_ranks_one_card(dataset, card: str, kind: str) -> dict:
+    """(c) MESH_RANKS ranks on the one card over gloo (NCCL takes one rank a
+    card), spawned processes loading the kernels step 2 built.  Their
+    float32 stage-2 step at the global batch against the single-process
+    step from the same weights, host batch and global draws: the losses (the
+    ranks' mean) within rtol 1e-3, each player's gradient within a relative
+    L2 distance of 1e-3, or 4x a one-site rounding probe's distance where
+    the step is that sensitive (compare_train_paths' rule), and the ranks
+    bit-equal after the step.  Their server's renders of SERVE_CHUNK
+    latents within a mean abs uint8 difference of 1.0 of the single-process
+    server's."""
+    rng = np.random.default_rng(MESH_SEED + 1)
+    config = train_config("float32")
+    model = ConfigNet(config, device=MESH_DEVICE)
+    give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
+    weights = model.get_weights()
+    latents = rng.normal(size=(SERVE_CHUNK, model.config["latent_dim"])).astype(np.float32)
+    rotations = poses(SERVE_CHUNK, rng)
+    alone_renders = ConfigNetServer(model, chunk=SERVE_CHUNK, device=MESH_DEVICE).generate(
+        latents, rotations)
+    draws = pinned_draws(model, rng)
+    model._batch_rng = np.random.RandomState(MESH_SEED)
+    batch = model._sample_host_batch(dataset, dataset)
+    results = {"alone": pinned_step(model, batch, draws, "single-process step")}
+    player_trees = model.PLAYER_TREES
+    del model
+    torch.cuda.empty_cache()
+    # the step's own sensitivity to rounding, as compare_train_paths measures it
+    generator_module._ROTATION_IMPLS.update(gather_plain=_rotate_plain,
+                                            gather_via_float64=_rotate_via_float64)
+    for name, rotation in (("plain", "gather_plain"), ("probe", "gather_via_float64")):
+        model = ConfigNet(train_config("float32", rotation_resample_train=rotation, adain_impl="plain"),
+                          device=MESH_DEVICE, initialize=False)
+        model.set_weights(weights)
+        results[name] = pinned_step(model, batch, draws, f"single-process {name} step")
+        del model
+        torch.cuda.empty_cache()
+    probe = train_distances(results["probe"], results["plain"], player_trees)
+    bounds = {k: 1e-3 if k == "losses" else max(1e-3, 4 * v) for k, v in probe.items()}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as directory:
+        inputs = {f"weights|{k}": v for k, v in flat_state(weights).items()}
+        inputs.update({f"flips|{i}": f for i, f in enumerate(draws[2])})
+        np.savez(Path(directory) / "inputs.npz", latents=latents, rotations=rotations, **inputs)
+        spec = dict(device=MESH_DEVICE, directory=directory, config=config, chunk=SERVE_CHUNK,
+                    n_flips=len(draws[2]), batch_seed=MESH_SEED, timed_steps=MESH_TIMED_STEPS,
+                    dataset=mesh_dataset_spec())
+        context = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [context.Process(target=gloo_rank, args=(rank, port, spec)) for rank in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(timeout=900)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        seconds = time.perf_counter() - t0
+        if any(proc.exitcode != 0 for proc in procs):
+            raise AssertionError(f"gloo ranks exited with {[p.exitcode for p in procs]}")
+        ranks = []
+        for rank in range(MESH_RANKS):
+            with np.load(Path(directory) / f"result_{rank}.npz") as npz:
+                ranks.append(dict(npz))
+
+    losses = {k.split("|", 1)[1]: float(np.mean([r[k] for r in ranks]))
+              for k in ranks[0] if k.startswith("loss|")}
+    moments = {}
+    for key, value in ranks[0].items():
+        if key.startswith("moments|"):
+            _, player, tree, path = key.split("|", 3)
+            moments.setdefault(player, {}).setdefault(tree, {})[path] = value
+    distance = train_distances((losses, moments), results["alone"], player_trees)
+    renders_diff = [float(np.mean(np.abs(r["renders"].astype(int) - alone_renders.astype(int))))
+                    for r in ranks]
+    steps_per_s = [MESH_TIMED_STEPS / float(r["steps_seconds"]) for r in ranks]
+    rec = dict(ranks=MESH_RANKS, backend="gloo", distances=distance, probe=probe, bounds=bounds,
+               renders_mean_abs_uint8=renders_diff, steps_per_s=min(steps_per_s),
+               img_per_s=min(steps_per_s) * TRAIN_BATCH,
+               peak_memory_gb=[float(r["peak_memory_gb"]) for r in ranks],
+               step_launches=[dict(zip(LAUNCH_NAMES, r["step_launches"].tolist())) for r in ranks],
+               serve_launches=[dict(zip(LAUNCH_NAMES, r["serve_launches"].tolist())) for r in ranks],
+               step_collectives=[dict(zip(sorted(STEP_COLLECTIVES), r["step_collectives"].tolist()))
+                                 for r in ranks],
+               seconds=seconds)
+    print(f"mesh {MESH_RANKS} gloo ranks on one card: step at global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // MESH_RANKS} a rank) vs the single-process step (losses: max relative "
+          f"error; players: relative L2 of the gradient) {json.dumps(distance)}; one-site rounding "
+          f"probe {json.dumps(probe)}; bounds {json.dumps(bounds)}; renders vs the single-process "
+          f"server, mean abs uint8 {renders_diff}; {rec['steps_per_s']:.3f} steps/s "
+          f"({rec['img_per_s']:.1f} img/s), peak {rec['peak_memory_gb']} GB a rank; "
+          f"{seconds:.1f} s with the spawns, on {kind} ({card})", flush=True)
+    failed = [k for k in distance if not distance[k] <= bounds[k]]
+    if failed or len({str(r["digest"]) for r in ranks}) != 1:
+        raise AssertionError(f"2-rank step: off on {failed}; rank digests "
+                             f"{[str(r['digest'])[:12] for r in ranks]}")
+    if not all(d < 1.0 for d in renders_diff) or not np.array_equal(ranks[0]["renders"],
+                                                                   ranks[1]["renders"]):
+        raise AssertionError(f"2-rank server: renders off by {renders_diff}")
+    for r in ranks:
+        if tuple(r["step_launches"]) != TRAIN_STEP_LAUNCHES or tuple(r["serve_launches"]) != CHUNK_LAUNCHES:
+            raise AssertionError(f"2-rank launches: {rec['step_launches']}, {rec['serve_launches']}")
+        if dict(zip(sorted(STEP_COLLECTIVES), r["step_collectives"].tolist())) != STEP_COLLECTIVES:
+            raise AssertionError(f"2-rank collectives: {rec['step_collectives']}")
+    return rec
+
+
+def mesh_path(card: str, kind: str) -> tuple:
+    """Step 15: the native gather, a world-size-1 process group, two ranks
+    on one card.  Returns (the train_mesh launches, the serve_mesh launches,
+    the record)."""
+    t_step = time.perf_counter()
+    dataset = FakeDataset(*mesh_dataset_spec())
+    gather = native_gather_run(dataset, card, kind)
+    train_launches, serve_launches, single = single_rank_group(dataset, card, kind)
+    two = two_ranks_one_card(dataset, card, kind)
+    seconds = time.perf_counter() - t_step
+    print(f"mesh: step 15 took {seconds:.1f} s", flush=True)
+    return train_launches, serve_launches, dict(native_gather=gather, single_rank=single,
+                                                two_ranks=two, seconds=seconds)
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -2330,6 +2783,9 @@ def main() -> int:
     parser.add_argument("--demo-only", action="store_true",
                         help="only build the kernels and run step 14, the demo path, then stop "
                         "(no kernels line and no result line)")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="only build the kernels and run step 15, the mesh path, then stop "
+                        "(no kernels line and no result line)")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -2372,6 +2828,13 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "demo": demo}, indent=1))
         print(f"total {time.perf_counter() - t_start:.1f} s (step 14 only)")
+        return 0
+    if args.mesh_only:
+        *_, mesh = mesh_path(card, kind)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "mesh": mesh}, indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 15 only)")
         return 0
 
     # -- 3. kernel phases ------------------------------------------------------
@@ -2573,7 +3036,11 @@ def main() -> int:
     path_launches["demo"], demo = demo_path(card, kind)
     torch.cuda.empty_cache()
 
-    # -- 15. records -----------------------------------------------------------------
+    # -- 15. the mesh path: the native gather, a world-size-1 group, two ranks on one card --
+    path_launches["train_mesh"], path_launches["serve_mesh"], mesh = mesh_path(card, kind)
+    torch.cuda.empty_cache()
+
+    # -- 16. records -----------------------------------------------------------------
     def times(phase_counts, dtype="float32"):
         """The phases at a path's shapes, each counted as often as the path
         launches it: error, times and bound of the path's launches."""
@@ -2629,7 +3096,9 @@ def main() -> int:
                "sample": {"rotate_cuda", "adain_cuda"},
                "evaluate": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
                "train_loop": {item["name"] for item in kernels},
-               "demo": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
+               "demo": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
+               "train_mesh": {item["name"] for item in kernels},
+               "serve_mesh": {"rotate_cuda", "adain_cuda"}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -2644,6 +3113,7 @@ def main() -> int:
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
              "sampling": sampling, "evaluation": evaluation, "loops": loops, "demo": demo,
+             "mesh": mesh,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

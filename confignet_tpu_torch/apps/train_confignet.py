@@ -9,7 +9,15 @@ with the same flags plus ``--device`` (default ``cuda``):
 
 It loads the three datasets, trains stage 1 on the synthetic and real sets,
 carries the weights into a stage-2 model (image-loss weight x10) and trains
-stage 2, on one device.  As in the JAX CLI the stage-2 flag is honoured (the
+stage 2, over a data-parallel mesh as the JAX CLI does (``parallel/mesh.py``).
+Launched by ``torchrun`` it trains on one card a process, over NCCL, each
+rank on ``cuda:LOCAL_RANK`` (or on the CPU over gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node=N -m confignet_tpu_torch.apps.train_confignet ...
+
+Launched plainly it trains on ``--device`` alone (a mesh of size 1, which
+launches no collective).  ``--batch_size`` is the global batch; it must
+divide by 2 * N.  As in the JAX CLI the stage-2 flag is honoured (the
 reference passes ``stage_1_training_steps`` to its stage-2 call,
 train_confignet.py:72).  ``--resume`` continues from the newest checkpoint
 under ``output_dir`` (stage 2) or ``output_dir/first_stage``.  The loss
@@ -76,8 +84,11 @@ def parse_args(args):
     from confignet_tpu_torch.core.config import merge_configs
     from confignet_tpu_torch.core.model_io import attempt_reloading_checkpoint, load_confignet
     from confignet_tpu_torch.data.dataset import NeuralRendererDataset
+    from confignet_tpu_torch.parallel import create_mesh, maybe_initialize_distributed
     from confignet_tpu_torch.training.first_stage import DEFAULT_CONFIG, ConfigNetFirstStage
     from confignet_tpu_torch.training.second_stage import ConfigNet
+
+    maybe_initialize_distributed(args.device)
 
     real_training_set = NeuralRendererDataset.load(args.real_training_set_path)
     synth_training_set = NeuralRendererDataset.load(args.synth_training_set_path)
@@ -104,9 +115,13 @@ def parse_args(args):
         config["facemodel_inputs"] = {k: tuple(v) for k, v in facemodel_override.items()}
     synth_training_set.process_metadata(config, True)
 
+    # under torchrun each rank takes cuda:LOCAL_RANK unless --device names another
+    mesh = create_mesh(device=None if args.device == "cuda" else args.device)
+    device = mesh.device
+
     # --- preemption recovery ---
     def load(path):
-        return load_confignet(path, device=args.device)
+        return load_confignet(path, device=device)
 
     resumed_stage2 = resumed_stage1 = None
     if args.resume:
@@ -119,13 +134,13 @@ def parse_args(args):
 
     # --- stage 1 ---
     if resumed_stage2 is None:
-        first_stage_model = resumed_stage1 or ConfigNetFirstStage(config, device=args.device)
+        first_stage_model = resumed_stage1 or ConfigNetFirstStage(config, device=device)
         with maybe_trace(args.profile_dir):
             first_stage_model.train(
                 real_training_set, synth_training_set,
                 os.path.join(args.output_dir, "first_stage"), args.log_dir,
                 n_steps=args.stage_1_training_steps,
-                n_samples_for_metrics=args.n_samples_for_metrics, aml_run=aml_run)
+                n_samples_for_metrics=args.n_samples_for_metrics, aml_run=aml_run, mesh=mesh)
         first_stage_weights = first_stage_model.get_weights()
 
     # --- stage 2 ---
@@ -133,7 +148,7 @@ def parse_args(args):
     if resumed_stage2 is not None:
         second_stage_model = resumed_stage2
     else:
-        second_stage_model = ConfigNet(config, device=args.device)
+        second_stage_model = ConfigNet(config, device=device)
         second_stage_model.set_weights(first_stage_weights)
 
     with maybe_trace(args.profile_dir):
@@ -141,7 +156,7 @@ def parse_args(args):
             real_training_set, synth_training_set, validation_set,
             args.attribute_classifier_path, args.output_dir, args.log_dir,
             n_steps=args.stage_2_training_steps,
-            n_samples_for_metrics=args.n_samples_for_metrics, aml_run=aml_run)
+            n_samples_for_metrics=args.n_samples_for_metrics, aml_run=aml_run, mesh=mesh)
     return second_stage_model
 
 

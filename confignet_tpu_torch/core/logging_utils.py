@@ -11,6 +11,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from confignet_tpu_torch.parallel.mesh import all_reduce_mean
+
 
 def update_loss_dict(main_loss_dict: Dict[str, List[float]], new_losses: Dict[str, object]) -> None:
     """Append the scalar values of ``new_losses`` to the running history."""
@@ -25,10 +27,14 @@ class LossFlusher:
     step.  The train loops append each step's nested dict of 0-d device
     tensors here and flush on a cadence: the flush stacks every pending
     value on the device and copies the stack to the host in one transfer.
+    Over a data-parallel ``mesh`` (``parallel/mesh.py``) each rank's losses
+    are means over its rows, and the flush replaces the stack by its mean
+    over the ranks (one all-reduce), so every rank logs the global batch's.
     """
 
-    def __init__(self, period: int = 50):
+    def __init__(self, period: int = 50, mesh=None):
         self.period = max(1, int(period))
+        self.mesh = mesh
         self._pending: list = []
 
     def append(self, losses) -> bool:
@@ -54,6 +60,7 @@ class LossFlusher:
         tensors = [i for i, leaf in enumerate(leaves) if isinstance(leaf, torch.Tensor)]
         if tensors:
             stacked = torch.stack([leaves[i].detach().reshape(()).float() for i in tensors])
+            all_reduce_mean(self.mesh, [stacked])
             for i, value in zip(tensors, stacked.cpu().tolist()):
                 leaves[i] = value
 

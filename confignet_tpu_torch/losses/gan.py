@@ -14,6 +14,8 @@ from typing import Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from confignet_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def gan_g_loss(scores: torch.Tensor) -> torch.Tensor:
     """Non-saturating generator loss (losses.py:7-8)."""
@@ -103,15 +105,26 @@ def latent_regression_loss(predictions: torch.Tensor, labels: torch.Tensor) -> t
 
 
 def normalized_latent_regression_loss(predictions: torch.Tensor, labels: torch.Tensor,
-                                      regression_weight: float, eps: float = 1e-3) -> torch.Tensor:
+                                      regression_weight: float, eps: float = 1e-3,
+                                      mesh=None) -> torch.Tensor:
     """Variance-normalised latent regression of the second stage (reference:
     confignet_second_stage.py:93-107): predictions and labels are re-centred
     and scaled by the labels' per-dimension std (the last 3 dims, rotations,
-    unscaled)."""
-    denominator = torch.sqrt(labels.var(dim=0, unbiased=False, keepdim=True) + eps)
+    unscaled).
+
+    The means and the variance are statistics of the whole batch: over a
+    data-parallel ``mesh`` (``parallel/mesh.py``) each rank holds its rows
+    and the statistics are summed over the ranks, differentiably, so the
+    loss is the global batch's.  Both are sums divided by the row count, the
+    variance taken about the mean (two passes)."""
+    n_rows = labels.shape[0] * (1 if mesh is None else mesh.size)
+    sums = all_reduce_sum(mesh, torch.cat([labels.sum(dim=0),
+                                           predictions.sum(dim=0).to(labels.dtype)]))
+    label_mean = sums[:labels.shape[1]] / n_rows
+    pred_mean = (sums[labels.shape[1]:] / n_rows).to(predictions.dtype)
+    variance = all_reduce_sum(mesh, (labels - label_mean).square().sum(dim=0)) / n_rows
+    denominator = torch.sqrt(variance + eps)[None]
     denominator = torch.cat([denominator[:, :-3], torch.ones_like(denominator[:, -3:])], dim=1)
-    pred_mean = predictions.mean(dim=0)
-    label_mean = labels.mean(dim=0)
     predictions = pred_mean + (predictions - pred_mean) / denominator
     labels = label_mean + (labels - label_mean) / denominator
     return (predictions - labels).square().mean() * regression_weight

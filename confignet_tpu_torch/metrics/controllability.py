@@ -213,7 +213,10 @@ class ControllabilityMetrics:
 
     def update_and_log_metrics(self, images, metrics_dict, output_dir,
                                aml_sink=None, tb_log_writer=None) -> None:
-        os.makedirs(output_dir, exist_ok=True)
+        """The metrics appended to ``metrics_dict``, sent to the sinks and,
+        unless ``output_dir`` is None, written there as JSON."""
+        if output_dir is not None:
+            os.makedirs(output_dir, exist_ok=True)
         new_metrics = self.get_metrics(images)
 
         for key, value in new_metrics.items():
@@ -236,6 +239,8 @@ class ControllabilityMetrics:
                 else:
                     tb_log_writer.scalar("metrics/" + key, value, step)
 
+        if output_dir is None:
+            return
         contr_only = {key: metrics_dict[key] for key in new_metrics.keys()}
         with open(os.path.join(output_dir, "controllability_metrics.json"), "w") as fp:
             json.dump(contr_only, fp, indent=4)

@@ -165,7 +165,10 @@ class InceptionMetrics:
 
     def update_and_log_metrics(self, images, metrics_dict, output_dir,
                                aml_sink=None, tb_log_writer=None, features=None) -> None:
-        os.makedirs(output_dir, exist_ok=True)
+        """KID and FID appended to ``metrics_dict``, sent to the sinks and,
+        unless ``output_dir`` is None, plotted and tabled there."""
+        if output_dir is not None:
+            os.makedirs(output_dir, exist_ok=True)
         kid, fid = self.get_metrics(images, features=features)
         metrics_dict.setdefault("kid", []).append(kid)
         metrics_dict.setdefault("fid", []).append(fid)
@@ -178,7 +181,7 @@ class InceptionMetrics:
         if aml_sink is not None:
             aml_sink("Kernel Inception Distance", kid)
             aml_sink("Frechet Inception Distance", fid)
-        else:
+        elif output_dir is not None:
             from confignet_tpu_torch.core.logging_utils import agg_pyplot
 
             plt = agg_pyplot()
@@ -195,6 +198,8 @@ class InceptionMetrics:
             tb_log_writer.scalar("metrics/kid", kid, steps[-1])
             tb_log_writer.scalar("metrics/fid", fid, steps[-1])
 
+        if output_dir is None:
+            return
         table = np.stack((steps, metrics_dict["kid"], metrics_dict["fid"]), axis=1)
         np.savetxt(os.path.join(output_dir, "inception_metrics.txt"), table,
                    header="\t".join(["step_number", "kid", "fid"]))

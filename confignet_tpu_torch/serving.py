@@ -4,7 +4,8 @@
 uint8 photos in, uint8 renders out; the attribute splice happens on the
 device between the encoder and the generator, and the uint8 conversion of
 the renders is done on the device too, so only 1 byte per pixel crosses back
-to the host.
+to the host.  Over a data-parallel mesh (``parallel/mesh.py``) each rank
+renders its rows of every chunk and the chunk is gathered back on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.parallel.mesh import all_gather_rows, replicate, shard_batch
 
 
 class ConfigNetServer:
@@ -28,13 +30,26 @@ class ConfigNetServer:
     **Snapshot semantics**: the weights are deep-copied at construction, so
     training or fine-tuning the wrapped model afterwards does not change
     what the server renders.  :meth:`refresh` takes a new snapshot.
+
+    ``mesh``: a data-parallel mesh (one process per card, each building the
+    server alike and making the same calls); the snapshot takes rank 0's
+    weights, each rank renders its rows of every chunk, and every rank
+    returns the full result.  The server runs on the mesh's device.
     """
 
     def __init__(self, confignet, latent_gan=None, chunk: int = 32,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
         self.confignet = confignet
         self.latent_gan = latent_gan
         self.chunk = int(chunk)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.chunk % mesh.size != 0:
+                raise ValueError(f"chunk ({self.chunk}) must be divisible by the mesh size "
+                                 f"({mesh.size}) so batches shard evenly")
+            if device is not None:
+                raise ValueError("a server over a mesh runs on the mesh's device; pass no device")
+            device = mesh.device
         self.device = resolve_device(device)
         self.refresh()
 
@@ -44,7 +59,8 @@ class ConfigNetServer:
         model = self.confignet
 
         def snap(module):
-            return copy.deepcopy(module).to(self.device).eval()
+            module = copy.deepcopy(module).to(self.device).eval()
+            return module if self.mesh is None else replicate(self.mesh, module)
 
         self._encoder = snap(model.real_encoder)
         self._generator = snap(model._inference_generator())
@@ -75,7 +91,9 @@ class ConfigNetServer:
     @torch.inference_mode()
     def _chunked(self, fn: Callable, arrays: Sequence[np.ndarray], extra=()):
         """Pad the leading axis to ``chunk``, run ``fn`` per chunk on the
-        device, strip the padding.  ``extra`` tensors pass through whole."""
+        device, strip the padding.  ``extra`` tensors pass through whole.
+        Over a mesh, ``fn`` runs on this rank's rows of each chunk and its
+        outputs are gathered from every rank."""
         n = arrays[0].shape[0]
         outs = []
         for start in range(0, n, self.chunk):
@@ -85,9 +103,12 @@ class ConfigNetServer:
                 pad = self.chunk - piece.shape[0]
                 if pad:
                     piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
-                pieces.append(torch.from_numpy(np.ascontiguousarray(piece)).to(self.device))
+                piece = np.ascontiguousarray(piece)
+                pieces.append(torch.from_numpy(piece).to(self.device) if self.mesh is None
+                              else shard_batch(self.mesh, piece))
             out = fn(*pieces, *extra)
-            outs.append(out if isinstance(out, tuple) else (out,))
+            outs.append(tuple(all_gather_rows(self.mesh, o)
+                              for o in (out if isinstance(out, tuple) else (out,))))
 
         def cat(i):
             host = [o[i].float().cpu().numpy() if o[i].is_floating_point() else o[i].cpu().numpy()

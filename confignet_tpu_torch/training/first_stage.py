@@ -26,6 +26,14 @@ parameters only, so the G step's backward never reaches a D optimizer.
 Random draws come from one ``torch.Generator`` on the model's device, seeded
 from ``config["seed"]``, through three methods a caller may override
 (:meth:`_sample_latent`, :meth:`_sample_rotations`, :meth:`_flip_mask`).
+
+Over a data-parallel mesh (``train(mesh=...)``, ``parallel/mesh.py``; one
+process per card) every rank holds the same parameters and its own rows of
+the global batch: the host batch gathers only this rank's rows of the global
+index draws, the step's draws are taken at the global batch (the seeded
+generators run in lockstep) and cut to this rank's rows, and each player's
+gradient is averaged over the ranks (one coalesced all-reduce) before its
+Adam step, so the step is the single-device step at the global batch.
 """
 from __future__ import annotations
 
@@ -60,6 +68,8 @@ from confignet_tpu_torch.models.blocks import MLP
 from confignet_tpu_torch.models.discriminator import HologanDiscriminator, HologanLatentRegressor
 from confignet_tpu_torch.models.generator import HologanGenerator
 from confignet_tpu_torch.models.synthetic_encoder import SyntheticDataEncoder
+from confignet_tpu_torch.parallel.mesh import all_reduce_mean, process_slice, replicate
+from confignet_tpu_torch.runtime import gather_images, gather_rows
 from confignet_tpu_torch.training.state import ema_update, make_adam
 
 # The config schema: the same keys and semantics as the JAX package's
@@ -140,16 +150,13 @@ Batch = Dict[str, Any]
 # the trees an image checkpoint renders, encodes and scores with
 INFERENCE_TREES = ("generator_smoothed", "synthetic_encoder", "real_encoder")
 
-# the ROADMAP item that brings the device mesh
-_MESH_NOT_PORTED = ("training over a device mesh needs parallel/ (ROADMAP queue 1 item 7), "
-                    "which is not ported yet")
 
-
-def _use_async_checkpointing(config: Dict[str, Any]) -> bool:
+def _use_async_checkpointing(config: Dict[str, Any], mesh=None) -> bool:
     """Checkpoints run on the worker thread unless the config asks for the
-    reference's inline block (the port trains in one process, so the JAX
-    package's multi-process exception does not arise)."""
-    return bool(config.get("async_checkpointing", True))
+    reference's inline block, or the run is spread over several processes:
+    then every rank takes the inline path at the same steps, as every host
+    of the JAX package does."""
+    return bool(config.get("async_checkpointing", True)) and (mesh is None or mesh.size == 1)
 
 # rotation_resample values that only the JAX package knows (its TPU
 # lowerings and its matmul form, confignet_tpu/models/generator.py:45-77,
@@ -207,6 +214,8 @@ class ConfigNetFirstStage:
         # shift the batch order.
         self._batch_rng = np.random.RandomState(np.random.randint(0, 2**31))
         self._fine_tuned_generator_params = None
+        # the data-parallel mesh this model trains over (setup_training), or None
+        self.mesh = None
         self.g_losses: Dict[str, List[float]] = {}
         self.d_losses: Dict[str, List[float]] = {}
         self.synth_d_losses: Dict[str, List[float]] = {}
@@ -468,6 +477,14 @@ class ConfigNetFirstStage:
         """Bernoulli(0.5) per image: which real images are hflipped."""
         return torch.rand((n,), generator=self._draws, device=self.device) < 0.5
 
+    def _draw(self, draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
+        """``draw`` (one of the three above) for ``n`` rows of this rank: over
+        a mesh the draw is taken at the global batch, ``n`` rows a rank, and
+        cut to this rank's rows, so the ranks together draw what one device
+        draws at the global batch."""
+        size = 1 if self.mesh is None else self.mesh.size
+        return draw(n * size)[process_slice(n * size, self.mesh)]
+
     @staticmethod
     def _to_unit_range(u8: torch.Tensor) -> torch.Tensor:
         return u8.float() / 127.5 - 1.0
@@ -482,6 +499,8 @@ class ConfigNetFirstStage:
         as the JAX step's)."""
         params = self._player_params[player]
         grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        # over a mesh: the mean of the ranks' gradients, the global batch's
+        all_reduce_mean(self.mesh, grads)
         for p, g in zip(params, grads):
             p.grad = g
         self.optimizers[player].step()
@@ -491,21 +510,21 @@ class ConfigNetFirstStage:
     def _image_d_fakes(self, b: Batch, batch_size: int) -> torch.Tensor:
         """The image discriminator's fakes, without gradient: G(z, rot) of
         the pre-step generator, z and rot from the prior."""
-        z = self._sample_latent(batch_size)
-        rot = self._sample_rotations(batch_size)
+        z = self._draw(self._sample_latent, batch_size)
+        rot = self._draw(self._sample_rotations, batch_size)
         with torch.no_grad():
             return self.generator(z, rot)
 
     def _latent_d_reals(self, b: Batch, batch_size: int) -> torch.Tensor:
         """The latent discriminator's real side: z ~ prior."""
-        return self._sample_latent(batch_size)
+        return self._draw(self._sample_latent, batch_size)
 
     def _generator_losses(self, gb: Batch, batch_size: int) -> Dict[str, torch.Tensor]:
         """The generator player's losses (first_stage.py:401-435): prior
         draws for the real-set half of the batch."""
         n_real = batch_size - gb["g_gt_imgs"].shape[0]
-        z_real = self._sample_latent(n_real)
-        rot_real = self._sample_rotations(n_real)
+        z_real = self._draw(self._sample_latent, n_real)
+        rot_real = self._draw(self._sample_rotations, n_real)
         cfg = self.config
         losses: Dict[str, torch.Tensor] = {}
         synth_latents = self.synthetic_encoder(gb["g_facemodel"])
@@ -554,7 +573,7 @@ class ConfigNetFirstStage:
 
                 # (a) image discriminator: real set vs fakes of the pre-step G
                 real_imgs = batched_hflip(self._to_unit_range(b["d_real_imgs"]),
-                                          self._flip_mask(batch_size))
+                                          self._draw(self._flip_mask, batch_size))
                 fake_imgs = self._image_d_fakes(b, batch_size)
                 d_losses = compute_discriminator_loss(self.discriminator, real_imgs, fake_imgs,
                                                       r1_heads=r1_heads)
@@ -562,7 +581,7 @@ class ConfigNetFirstStage:
 
                 # (b) synthetic discriminator: synth set vs G(E_s(params))
                 synth_real = batched_hflip(self._to_unit_range(b["synth_d_real_imgs"]),
-                                           self._flip_mask(batch_size))
+                                           self._draw(self._flip_mask, batch_size))
                 with torch.no_grad():
                     synth_latents = self.synthetic_encoder(b["synth_d_facemodel"])
                     synth_fake = self.generator(synth_latents, b["synth_d_rotations"])
@@ -651,6 +670,9 @@ class ConfigNetFirstStage:
 
     def _sample_host_batch_single(self, real_training_set, synth_training_set,
                                   d_fields: bool = True, g_fields: bool = True) -> Batch:
+        """One host batch, drawn from ``self._batch_rng`` in the JAX package's
+        order (first_stage.py:633-681).  Over a mesh every rank draws the same
+        global index arrays and gathers only its own rows of them."""
         rng = self._batch_rng
         batch_size = self.config["batch_size"]
         n_synth = batch_size // 2
@@ -658,24 +680,25 @@ class ConfigNetFirstStage:
         rotations = synth_training_set.metadata_inputs["rotations"]
         batch: Batch = {}
         if d_fields:
-            d_idx = rng.randint(0, real_training_set.imgs.shape[0], batch_size)
-            sd_idx = rng.randint(0, n_synth_imgs, batch_size)
-            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
-            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            rows = process_slice(batch_size, self.mesh)
+            d_idx = rng.randint(0, real_training_set.imgs.shape[0], batch_size)[rows]
+            sd_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
+            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
+            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
             batch.update({
-                "d_real_imgs": np.ascontiguousarray(real_training_set.imgs[d_idx]),
-                "synth_d_real_imgs": np.ascontiguousarray(synth_training_set.imgs[sd_idx]),
+                "d_real_imgs": gather_images(real_training_set.imgs, d_idx),
+                "synth_d_real_imgs": gather_images(synth_training_set.imgs, sd_idx),
                 "synth_d_facemodel": self._facemodel_batch(synth_training_set, sd_fm_idx),
                 "synth_d_rotations": np.ascontiguousarray(rotations[sd_fm_idx], dtype=np.float32),
                 "latent_d_facemodel": self._facemodel_batch(synth_training_set, ld_fm_idx),
             })
         if g_fields:
-            g_idx = rng.randint(0, n_synth_imgs, n_synth)
+            g_idx = rng.randint(0, n_synth_imgs, n_synth)[process_slice(n_synth, self.mesh)]
             batch.update({
                 "g_facemodel": self._facemodel_batch(synth_training_set, g_idx),
                 "g_rotations": np.ascontiguousarray(rotations[g_idx], dtype=np.float32),
-                "g_gt_imgs": np.ascontiguousarray(synth_training_set.imgs[g_idx]),
-                "g_eye_masks": np.ascontiguousarray(np.asarray(synth_training_set.eye_masks)[g_idx]),
+                "g_gt_imgs": gather_images(synth_training_set.imgs, g_idx),
+                "g_eye_masks": gather_rows(np.asarray(synth_training_set.eye_masks), g_idx),
             })
         return batch
 
@@ -689,13 +712,15 @@ class ConfigNetFirstStage:
         of the metrics and the checkpoint panels, drawn from the global
         ``np.random`` in the JAX package's order: the metric sample's
         indexes, the metric latents and rotations, the panel latents, then
-        the panel's face-model indexes."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        the panel's face-model indexes.  Over a ``mesh`` (see
+        :meth:`_use_mesh`) every rank sets up alike, and only rank 0 makes
+        the log directory and its writer."""
         if real_training_set is None:
             real_training_set = synth_training_set
-        os.makedirs(log_dir, exist_ok=True)
-        self.log_writer = TensorBoardWriter(log_dir)
+        self._use_mesh(mesh)
+        if self._writes_files():
+            os.makedirs(log_dir, exist_ok=True)
+            self.log_writer = TensorBoardWriter(log_dir)
 
         try:
             from confignet_tpu_torch.metrics.inception import InceptionMetrics
@@ -729,6 +754,36 @@ class ConfigNetFirstStage:
         self._checkpoint_visualization_input["gt_imgs"] = np.copy(
             synth_training_set.imgs[viz_idx]).astype(np.float32)
 
+    def _use_mesh(self, mesh) -> None:
+        """Train over ``mesh`` (``parallel/mesh.py``), or on this device alone
+        with None.  The batch must shard evenly (its generator half too), the
+        model must live on the mesh's device, and every rank takes rank 0's
+        parameter trees and Adam moments."""
+        self.mesh = mesh
+        if mesh is None:
+            return
+        if self.config["batch_size"] % (2 * mesh.size) != 0:
+            raise ValueError(
+                "batch_size must be divisible by 2 * mesh size so the G-step "
+                f"half-batch shards evenly; got batch_size={self.config['batch_size']} "
+                f"over {mesh.size} devices")
+        self._check_mesh_device(mesh)
+        for tree in self.WEIGHT_TREES:
+            replicate(mesh, getattr(self, tree))
+        replicate(mesh, [state[key] for optimizer in self.optimizers.values()
+                         for state in optimizer.state.values()
+                         for key in ("exp_avg", "exp_avg_sq") if key in state])
+
+    def _check_mesh_device(self, mesh) -> None:
+        # an empty tensor resolves "cuda" to the current card's index
+        if torch.empty(0, device=self.device).device != torch.empty(0, device=mesh.device).device:
+            raise ValueError(f"the model lives on {self.device}, the mesh on {mesh.device}")
+
+    def _writes_files(self) -> bool:
+        """Whether this process writes the run's files, logs and sinks: rank
+        0 of a mesh, or the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def train(self, real_training_set, synth_training_set, output_dir, log_dir,
               n_steps=100000, n_samples_for_metrics=1000, aml_run=None,
               mesh=None) -> Dict[str, float]:
@@ -736,7 +791,10 @@ class ConfigNetFirstStage:
         ``{"loop_seconds", "steps_run"}``, the loop's wall time (the last
         checkpoint's drain included) and its steps.  ``aml_run``: anything
         with ``log(name, value)``, which then receives the latest losses,
-        metrics and timings in place of the loss plots."""
+        metrics and timings in place of the loss plots.  ``mesh``: a
+        data-parallel mesh (``parallel.create_mesh()``), one process per
+        card, each calling ``train`` alike; the losses logged are the global
+        batch's, and only rank 0 writes files."""
         self.setup_training(log_dir, synth_training_set, n_samples_for_metrics,
                             real_training_set=real_training_set, mesh=mesh)
         return self._run_training(real_training_set, synth_training_set, output_dir, n_steps,
@@ -744,7 +802,7 @@ class ConfigNetFirstStage:
 
     def _run_training(self, real_training_set, synth_training_set, output_dir, n_steps,
                       aml_run) -> Dict[str, float]:
-        if aml_run is not None:
+        if aml_run is not None and self._writes_files():
             self.aml_sink = lambda name, value: aml_run.log(name, value)
         start_step = self.get_resume_step()
         if self._train_step_fn is None:
@@ -756,7 +814,7 @@ class ConfigNetFirstStage:
         prefetcher = BatchPrefetcher(
             lambda: self._sample_host_batch(real_training_set, synth_training_set),
             depth=self.config.get("prefetch_depth", 2), device=self.device)
-        if _use_async_checkpointing(self.config):
+        if _use_async_checkpointing(self.config, self.mesh):
             self._checkpoint_worker = CheckpointWorker()
         loop_start = time.perf_counter()
         try:
@@ -771,7 +829,7 @@ class ConfigNetFirstStage:
                 "steps_run": max(0, n_steps - start_step)}
 
     def _train_loop(self, prefetcher, start_step, n_steps, output_dir) -> None:
-        flusher = LossFlusher(self.config.get("loss_print_period", 50))
+        flusher = LossFlusher(self.config.get("loss_print_period", 50), mesh=self.mesh)
         image_p = self.config["image_checkpoint_period"]
         metrics_p = self.config["metrics_checkpoint_period"]
         window_start, window_len = time.perf_counter(), 0
@@ -808,7 +866,11 @@ class ConfigNetFirstStage:
         """The checkpoint block: inline (the reference's order,
         confignet_first_stage.py:616-626) or, with ``async_checkpointing``,
         on the worker thread from clones of the parameters taken here,
-        before the next step updates them in place."""
+        before the next step updates them in place.  Over a mesh of several
+        processes every rank runs the block inline at the same steps, as
+        every host of the JAX package does, so no rank waits in a collective
+        while another scores; only rank 0 writes (the others pass no
+        ``output_dir`` down)."""
         step_number = self.get_training_step_number()
         image_due = step_number % self.config["image_checkpoint_period"] == 0
         metrics_due = step_number % self.config["metrics_checkpoint_period"] == 0
@@ -817,11 +879,12 @@ class ConfigNetFirstStage:
         self.checkpoint_events_run += 1
 
         if self._checkpoint_worker is None:
+            writes = self._writes_files()
             losses = {"g": self.g_losses, "d": self.d_losses,
                       "synth_d": self.synth_d_losses, "latent_d": self.latent_d_losses}
-            self._run_checkpoints_body(output_dir, iteration_time, step_number, image_due,
-                                       metrics_due, losses,
-                                       self.get_weights() if metrics_due else None)
+            self._run_checkpoints_body(output_dir if writes else None, iteration_time, step_number,
+                                       image_due, metrics_due, losses,
+                                       self.get_weights() if metrics_due and writes else None)
             return
 
         # Clones on the device, queued on the current stream ahead of the next
@@ -860,11 +923,15 @@ class ConfigNetFirstStage:
 
         self._checkpoint_worker.submit(job)
 
-    def _run_checkpoints_body(self, output_dir: str, iteration_time: float, step_number: int,
-                              image_due: bool, metrics_due: bool, losses: Dict[str, Dict],
+    def _run_checkpoints_body(self, output_dir: Optional[str], iteration_time: float,
+                              step_number: int, image_due: bool, metrics_due: bool,
+                              losses: Dict[str, Dict],
                               weights: Optional[Dict[str, Dict[str, np.ndarray]]]) -> None:
+        """Score, render and write one checkpoint; with ``output_dir`` None
+        (a rank that does not write) it scores and renders, and writes
+        nothing."""
         checkpoint_start = time.perf_counter()
-        if image_due:
+        if image_due and output_dir is not None:
             log_loss_vals(losses["synth_d"], output_dir, step_number, "synth_discriminator_",
                           self.log_writer, self.aml_sink)
             log_loss_vals(losses["latent_d"], output_dir, step_number, "latent_discriminator_",
@@ -872,16 +939,20 @@ class ConfigNetFirstStage:
 
         if metrics_due:
             self.calculate_metrics(output_dir, step_number=step_number)
-            log_dict = {"g_losses": losses["g"], "d_losses": losses["d"], "metrics": self.metrics}
-            self._write_checkpoint_files(weights, log_dict, os.path.join(output_dir, "checkpoints"),
-                                         str(step_number).zfill(6))
+            if output_dir is not None:
+                log_dict = {"g_losses": losses["g"], "d_losses": losses["d"],
+                            "metrics": self.metrics}
+                self._write_checkpoint_files(weights, log_dict,
+                                             os.path.join(output_dir, "checkpoints"),
+                                             str(step_number).zfill(6))
 
         if image_due:
             self.image_checkpoint(output_dir, step_number=step_number)
-            log_loss_vals(losses["g"], output_dir, step_number, "generator_", self.log_writer,
-                          self.aml_sink)
-            log_loss_vals(losses["d"], output_dir, step_number, "discriminator_", self.log_writer,
-                          self.aml_sink)
+            if output_dir is not None:
+                log_loss_vals(losses["g"], output_dir, step_number, "generator_",
+                              self.log_writer, self.aml_sink)
+                log_loss_vals(losses["d"], output_dir, step_number, "discriminator_",
+                              self.log_writer, self.aml_sink)
 
             checkpoint_time = time.perf_counter() - checkpoint_start
             print("Training iteration time: %f" % iteration_time)
@@ -893,7 +964,7 @@ class ConfigNetFirstStage:
                 self.aml_sink("Training iter time", iteration_time)
                 self.aml_sink("Checkpoint time", checkpoint_time)
 
-    def image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+    def image_checkpoint(self, output_dir: Optional[str], step_number: Optional[int] = None) -> None:
         """``output_imgs/<step>.png``: the panel latents rendered at six yaws
         (rows), then the synthetic-data panel."""
         if step_number is None:
@@ -901,14 +972,12 @@ class ConfigNetFirstStage:
         viz = self._checkpoint_visualization_input
         generated = self.generate_images(viz["latent"], viz["rotation"])
         combined = build_image_matrix(generated, self.n_checkpoint_rotations, self.n_checkpoint_samples)
-        img_dir = os.path.join(output_dir, "output_imgs")
-        os.makedirs(img_dir, exist_ok=True)
-        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + ".png"), combined)
-        if self.log_writer is not None:
-            self.log_writer.image("generated_images", combined, step_number)
+        self._save_panel(output_dir, str(step_number).zfill(6) + ".png", combined,
+                         "generated_images", step_number)
         self.synth_data_image_checkpoint(output_dir, step_number=step_number)
 
-    def synth_data_image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+    def synth_data_image_checkpoint(self, output_dir: Optional[str],
+                                    step_number: Optional[int] = None) -> None:
         """``output_imgs/<step>_synth.jpg``: the synthetic ground truth, then
         its face-model parameters rendered at six yaws."""
         if step_number is None:
@@ -918,11 +987,21 @@ class ConfigNetFirstStage:
         generated = np.vstack((viz["gt_imgs"].astype(np.uint8), generated))
         combined = build_image_matrix(generated, self.n_checkpoint_rotations + 1,
                                       self.n_checkpoint_samples)
+        self._save_panel(output_dir, str(step_number).zfill(6) + "_synth.jpg", combined,
+                         "generated_synth_images", step_number)
+
+    def _save_panel(self, output_dir: Optional[str], filename: str, panel: np.ndarray, tag: str,
+                    step_number: int) -> None:
+        """``output_dir/output_imgs/<filename>`` and the TensorBoard image
+        ``tag``; nothing without an ``output_dir`` (a rank that does not
+        write)."""
+        if output_dir is None:
+            return
         img_dir = os.path.join(output_dir, "output_imgs")
         os.makedirs(img_dir, exist_ok=True)
-        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + "_synth.jpg"), combined)
+        self._imwrite(os.path.join(img_dir, filename), panel)
         if self.log_writer is not None:
-            self.log_writer.image("generated_synth_images", combined, step_number)
+            self.log_writer.image(tag, panel, step_number)
 
     @staticmethod
     def _imwrite(path: str, img_bgr: np.ndarray) -> None:
@@ -947,9 +1026,10 @@ class ConfigNetFirstStage:
         m = self._generator_input_for_metrics
         return m["latent"], m["rotation"]
 
-    def calculate_metrics(self, output_dir: str, step_number: Optional[int] = None) -> None:
+    def calculate_metrics(self, output_dir: Optional[str], step_number: Optional[int] = None) -> None:
         """KID and FID of the metric latents' renders through the fused
-        generator -> Inception path, appended to ``metrics``."""
+        generator -> Inception path, appended to ``metrics`` (and written
+        under ``output_dir`` where one is given)."""
         if self._inception_metric_object is None:
             return
         if step_number is None:

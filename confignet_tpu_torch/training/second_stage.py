@@ -50,8 +50,18 @@ from confignet_tpu_torch.losses.perceptual import PerceptualLoss
 from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_mapped
 from confignet_tpu_torch.models.backbones.resnet import resnet50_keras_name_map
 from confignet_tpu_torch.models.real_encoder import RealEncoder
+from confignet_tpu_torch.parallel.mesh import (
+    all_gather_rows, all_reduce_mean, process_slice, replicate, shard_batch)
+from confignet_tpu_torch.runtime import gather_images, gather_rows
 from confignet_tpu_torch.training.first_stage import PLAYER_TREES, Batch, ConfigNetFirstStage
 from confignet_tpu_torch.training.state import make_fine_tune_adam
+
+
+def _per_image_variables(n_imgs: int, mesh) -> Tuple[str, ...]:
+    """The fine-tune variables sharded over a mesh: the per-image ones, when
+    there are several images (second_stage.py:743-744)."""
+    return ("expr", "rotations") if mesh is not None and n_imgs > 1 else ()
+
 
 FineTuneStep = Callable[[torch.nn.Module, Dict[str, torch.Tensor], torch.optim.Optimizer, torch.Tensor],
                         Tuple[Dict[str, torch.Tensor], torch.Tensor]]
@@ -65,7 +75,7 @@ class ConfigNet(ConfigNetFirstStage):
 
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
                  initialize: bool = True):
-        self._fine_tune_step_cache: Dict[Tuple[bool, int], FineTuneStep] = {}
+        self._fine_tune_step_cache: Dict[Tuple[bool, int, Any], FineTuneStep] = {}
         self._generator_ft: Optional[torch.nn.Module] = None
         # the loss sums of the last fine_tune_on_img call, 0-d tensors on the device
         self.fine_tune_losses = []
@@ -133,7 +143,8 @@ class ConfigNet(ConfigNetFirstStage):
 
     def _latent_d_reals(self, b: Batch, batch_size: int) -> torch.Tensor:
         """Encoder latents of hflipped real images, without gradient."""
-        imgs = batched_hflip(self._to_unit_range(b["latent_d_real_imgs"]), self._flip_mask(batch_size))
+        imgs = batched_hflip(self._to_unit_range(b["latent_d_real_imgs"]),
+                             self._draw(self._flip_mask, batch_size))
         with torch.no_grad():
             return self.real_encoder(imgs)[0]
 
@@ -149,7 +160,7 @@ class ConfigNet(ConfigNetFirstStage):
         out_synth = self.generator(synth_latents, gb["g_rotations"])
 
         real_imgs = batched_hflip(self._to_unit_range(gb["g_real_imgs"]),
-                                  self._flip_mask(gb["g_real_imgs"].shape[0]))
+                                  self._draw(self._flip_mask, gb["g_real_imgs"].shape[0]))
         real_latents, real_rotations = self.real_encoder(real_imgs)
         out_real = self.generator(real_latents, real_rotations)
 
@@ -188,47 +199,50 @@ class ConfigNet(ConfigNetFirstStage):
             labels = torch.cat([stacked_latents,
                                 cfg["latent_regressor_rot_weight"] * stacked_rotations], dim=-1)
             losses["latent_regression_loss"] = normalized_latent_regression_loss(
-                self.latent_regressor(stacked_outputs), labels, w_reg)
+                self.latent_regressor(stacked_outputs), labels, w_reg, mesh=self.mesh)
         losses["loss_sum"] = sum(losses.values())
         return losses
 
     def _sample_host_batch_single(self, real_training_set, synth_training_set,
                                   d_fields: bool = True, g_fields: bool = True) -> Batch:
         """One stage-2 host batch, drawn from ``self._batch_rng`` in the JAX
-        package's order (second_stage.py:376-432); numpy indexing gathers the
-        same bytes as its native gather."""
+        package's order (second_stage.py:376-432) and gathered by the native
+        runtime, as JAX's is.  Over a mesh every rank draws the same global
+        index arrays and gathers only its own rows of them."""
         rng = self._batch_rng
         batch_size = self.config["batch_size"]
         n_synth = batch_size // 2
+        n_real = batch_size - n_synth
         n_real_imgs, n_synth_imgs = real_training_set.imgs.shape[0], synth_training_set.imgs.shape[0]
         real, synth = real_training_set.imgs, synth_training_set.imgs
         rotations = synth_training_set.metadata_inputs["rotations"]
         batch: Batch = {}
         if d_fields:
-            d_real_idx = rng.randint(0, n_real_imgs, batch_size)
-            d_input_idx = rng.randint(0, n_real_imgs, batch_size)
-            sd_idx = rng.randint(0, n_synth_imgs, batch_size)
-            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
-            ld_real_idx = rng.randint(0, n_real_imgs, batch_size)
-            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)
+            rows = process_slice(batch_size, self.mesh)
+            d_real_idx = rng.randint(0, n_real_imgs, batch_size)[rows]
+            d_input_idx = rng.randint(0, n_real_imgs, batch_size)[rows]
+            sd_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
+            sd_fm_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
+            ld_real_idx = rng.randint(0, n_real_imgs, batch_size)[rows]
+            ld_fm_idx = rng.randint(0, n_synth_imgs, batch_size)[rows]
             batch.update({
-                "d_real_imgs": np.ascontiguousarray(real[d_real_idx]),
-                "d_input_imgs": np.ascontiguousarray(real[d_input_idx]),
-                "synth_d_real_imgs": np.ascontiguousarray(synth[sd_idx]),
+                "d_real_imgs": gather_images(real, d_real_idx),
+                "d_input_imgs": gather_images(real, d_input_idx),
+                "synth_d_real_imgs": gather_images(synth, sd_idx),
                 "synth_d_facemodel": self._facemodel_batch(synth_training_set, sd_fm_idx),
                 "synth_d_rotations": np.ascontiguousarray(rotations[sd_fm_idx], dtype=np.float32),
-                "latent_d_real_imgs": np.ascontiguousarray(real[ld_real_idx]),
+                "latent_d_real_imgs": gather_images(real, ld_real_idx),
                 "latent_d_facemodel": self._facemodel_batch(synth_training_set, ld_fm_idx),
             })
         if g_fields:
-            g_idx = rng.randint(0, n_synth_imgs, n_synth)
-            g_real_idx = rng.randint(0, n_real_imgs, batch_size - n_synth)
+            g_idx = rng.randint(0, n_synth_imgs, n_synth)[process_slice(n_synth, self.mesh)]
+            g_real_idx = rng.randint(0, n_real_imgs, n_real)[process_slice(n_real, self.mesh)]
             batch.update({
                 "g_facemodel": self._facemodel_batch(synth_training_set, g_idx),
                 "g_rotations": np.ascontiguousarray(rotations[g_idx], dtype=np.float32),
-                "g_gt_imgs": np.ascontiguousarray(synth[g_idx]),
-                "g_eye_masks": np.ascontiguousarray(np.asarray(synth_training_set.eye_masks)[g_idx]),
-                "g_real_imgs": np.ascontiguousarray(real[g_real_idx]),
+                "g_gt_imgs": gather_images(synth, g_idx),
+                "g_eye_masks": gather_rows(np.asarray(synth_training_set.eye_masks), g_idx),
+                "g_real_imgs": gather_images(real, g_real_idx),
             })
         return batch
 
@@ -272,7 +286,7 @@ class ConfigNet(ConfigNetFirstStage):
         return self._run_training(real_training_set, synth_training_set, output_dir, n_steps,
                                   aml_run)
 
-    def image_checkpoint(self, output_dir: str, step_number: Optional[int] = None) -> None:
+    def image_checkpoint(self, output_dir: Optional[str], step_number: Optional[int] = None) -> None:
         """The synthetic-data panel, then ``output_imgs/<step>.png``: the
         validation images, their autoencodings at the predicted pose, and at
         six yaws."""
@@ -290,11 +304,8 @@ class ConfigNet(ConfigNetFirstStage):
         combined = np.vstack((unit_range_to_uint8(gt_imgs), imgs_pred_rot, imgs_sweep))
         matrix = build_image_matrix(combined, self.n_checkpoint_rotations + 2,
                                     self.n_checkpoint_samples)
-        img_dir = os.path.join(output_dir, "output_imgs")
-        os.makedirs(img_dir, exist_ok=True)
-        self._imwrite(os.path.join(img_dir, str(step_number).zfill(6) + ".png"), matrix)
-        if self.log_writer is not None:
-            self.log_writer.image("generated_images", matrix, step_number)
+        self._save_panel(output_dir, str(step_number).zfill(6) + ".png", matrix,
+                         "generated_images", step_number)
 
     def generate_output_for_metrics(self) -> np.ndarray:
         imgs = self._generator_input_for_metrics.get("input_images")
@@ -310,7 +321,7 @@ class ConfigNet(ConfigNetFirstStage):
             return super()._metric_latents_and_rotations()
         return self.encode_images(imgs)
 
-    def calculate_metrics(self, output_dir: str, step_number: Optional[int] = None) -> None:
+    def calculate_metrics(self, output_dir: Optional[str], step_number: Optional[int] = None) -> None:
         """KID/FID, then on the validation images the controllability metric
         and the perceptual autoencoding loss (chunks of 16, their mean
         appended to ``metrics["perceptual_loss"]`` and ``image_metrics.txt``;
@@ -339,7 +350,9 @@ class ConfigNet(ConfigNetFirstStage):
         self.metrics.setdefault("perceptual_loss", []).append(perceptual)
         if self.log_writer is not None:
             self.log_writer.scalar("metrics/perceptual_loss", perceptual, step_number)
-        np.savetxt(os.path.join(output_dir, "image_metrics.txt"), self.metrics["perceptual_loss"])
+        if output_dir is not None:
+            np.savetxt(os.path.join(output_dir, "image_metrics.txt"),
+                       self.metrics["perceptual_loss"])
 
     # ------------------------------------------------------------------
     # Inference
@@ -389,10 +402,16 @@ class ConfigNet(ConfigNetFirstStage):
         the fine-tuned generator.  Returns float32 (embeddings, rotations).
         ``img_output_dir`` receives ``gt_img.png`` and one render an
         iteration.  The per-iteration loss sums stay in
-        :attr:`fine_tune_losses` (0-d tensors on the device)."""
-        if mesh is not None:
-            raise NotImplementedError("fine-tuning over a device mesh needs parallel/, which is not "
-                                      "ported yet")
+        :attr:`fine_tune_losses` (0-d tensors on the device; over a mesh,
+        this rank's images').
+
+        ``mesh``: a data-parallel mesh (``parallel/mesh.py``); every rank
+        passes the same images and fine-tunes on its rows of them, with
+        ``expr`` and ``rotations`` sharded alike when there are several
+        images and the generator copy, ``pre_expr`` and ``post_expr``
+        replicated (second_stage.py:731-752).  Only rank 0 writes images;
+        the printed losses are the global batch's, and every rank returns
+        the full result."""
         input_images = np.asarray(input_images)
         if input_images.dtype == np.uint8:
             input_images = input_images / 127.5 - 1.0
@@ -400,15 +419,31 @@ class ConfigNet(ConfigNetFirstStage):
         if input_images.ndim == 3:
             input_images = input_images[np.newaxis]
         n_imgs = input_images.shape[0]
+        if mesh is not None:
+            self._check_mesh_device(mesh)
+            if n_imgs % mesh.size != 0:
+                raise ValueError(f"fine-tune batch {n_imgs} must divide over {mesh.size} devices")
 
         embeddings, rotations = self.encode_images(input_images)
         variables = self._fine_tune_variables(embeddings, rotations, force_neutral_expression)
         generator = self._fine_tune_generator()
+        per_image = _per_image_variables(n_imgs, mesh)
+        if mesh is not None:
+            rows = process_slice(n_imgs, mesh)
+            variables = {k: v.detach()[rows].clone().requires_grad_(True) if k in per_image else v
+                         for k, v in variables.items()}
+            replicate(mesh, generator)
+            replicate(mesh, [v for k, v in variables.items() if k not in per_image])
         optimizer = self._fine_tune_optimizer(generator, variables, force_neutral_expression)
-        step = self._get_fine_tune_step(force_neutral_expression, n_imgs)
-        images = torch.from_numpy(input_images).to(self.device)
+        step = self._get_fine_tune_step(force_neutral_expression, n_imgs, mesh)
+        images = (torch.from_numpy(input_images).to(self.device) if mesh is None
+                  else shard_batch(mesh, input_images))
 
-        if img_output_dir is not None:
+        def global_mean(loss: torch.Tensor) -> float:
+            return float(all_reduce_mean(mesh, [loss.detach().float().clone()])[0])
+
+        writes = mesh is None or mesh.rank == 0  # rank 0 holds the first image
+        if img_output_dir is not None and writes:
             os.makedirs(img_output_dir, exist_ok=True)
             write_png(os.path.join(img_output_dir, "gt_img.png"),
                       unit_range_to_uint8(input_images)[0])
@@ -417,15 +452,18 @@ class ConfigNet(ConfigNetFirstStage):
             losses, out = step(generator, variables, optimizer, images)
             self.fine_tune_losses.append(losses["loss_sum"])
             if img_output_dir is not None:
-                print(float(losses["loss_sum"]))
-                write_png(os.path.join(img_output_dir, "output_%02d.png" % step_number),
-                          unit_range_to_uint8(out.float().cpu().numpy())[0])
+                print(global_mean(losses["loss_sum"]))
+                if writes:
+                    write_png(os.path.join(img_output_dir, "output_%02d.png" % step_number),
+                              unit_range_to_uint8(out.float().cpu().numpy())[0])
         if n_iters > 0:
-            print("fine-tune final loss: %f" % float(self.fine_tune_losses[-1]))
+            print("fine-tune final loss: %f" % global_mean(self.fine_tune_losses[-1]))
 
         self._fine_tuned_generator_params = {k: v.detach().clone()
                                              for k, v in generator.state_dict().items()}
         with torch.no_grad():
+            variables = {k: all_gather_rows(mesh, v.detach()) if k in per_image else v
+                         for k, v in variables.items()}
             embeddings = self._fine_tune_embeddings(variables, n_imgs)
         return embeddings.float().cpu().numpy(), variables["rotations"].detach().float().cpu().numpy()
 
@@ -473,12 +511,22 @@ class ConfigNet(ConfigNetFirstStage):
         return torch.cat([variables["pre_expr"].expand(n_imgs, -1), variables["expr"],
                           variables["post_expr"].expand(n_imgs, -1)], dim=1)
 
-    def _get_fine_tune_step(self, force_neutral: bool, n_imgs: int) -> FineTuneStep:
+    def _get_fine_tune_step(self, force_neutral: bool, n_imgs: int, mesh=None) -> FineTuneStep:
         """``step(generator, variables, optimizer, images) -> (losses, out)``:
         the fine-tune loss (second_stage.py:797-852) and one Adam step on
         the gradient with respect to the optimised tensors only.  Cached per
-        (force_neutral, n_imgs), as the JAX package caches its compiled step."""
-        cache_key = (force_neutral, n_imgs)
+        (force_neutral, n_imgs, mesh), as the JAX package caches its compiled
+        step.
+
+        Over a mesh, ``n_imgs`` is the global image count and the step sees
+        this rank's rows.  Every loss term is a mean over equal shards of
+        per-image values (the perceptual losses: of equal-size activations)
+        except the latent regression, whose batch statistics are summed over
+        the ranks; so the global loss is the mean of the ranks' losses.  Its
+        gradient is, for a replicated tensor, the mean of the ranks'
+        gradients, and for a sharded per-image tensor this rank's gradient
+        over ``mesh.size``, with no reduction."""
+        cache_key = (force_neutral, n_imgs, mesh)
         if cache_key in self._fine_tune_step_cache:
             return self._fine_tune_step_cache[cache_key]
         cfg = self.config
@@ -486,9 +534,11 @@ class ConfigNet(ConfigNetFirstStage):
         w_dom = cfg["domain_adverserial_loss_weight"]
         w_rot = cfg["latent_regressor_rot_weight"]
         w_reg = cfg["latent_regression_weight"]
+        n_rows = n_imgs if mesh is None else n_imgs // mesh.size
+        per_image = _per_image_variables(n_imgs, mesh)
 
         def step(generator, variables, optimizer, images):
-            embeddings = self._fine_tune_embeddings(variables, n_imgs)
+            embeddings = self._fine_tune_embeddings(variables, n_rows)
             out = generator(embeddings, variables["rotations"])
             losses: Dict[str, torch.Tensor] = {}
             losses["image_loss_real"] = 0.5 * w_img * self.perceptual_loss.loss_fn(images, out)
@@ -498,12 +548,18 @@ class ConfigNet(ConfigNetFirstStage):
             losses["latent_GAN_loss"] = w_dom * gan_d_loss(1.0, self.latent_discriminator(embeddings))
             labels = torch.cat([embeddings, w_rot * variables["rotations"]], dim=-1)
             losses["latent_regression_loss"] = normalized_latent_regression_loss(
-                self.latent_regressor(out), labels, w_reg)
+                self.latent_regressor(out), labels, w_reg, mesh=mesh)
             losses["loss_sum"] = sum(losses.values())
 
             params = [p for group in optimizer.param_groups for p in group["params"]]
             grads = torch.autograd.grad(losses["loss_sum"], params, allow_unused=True,
                                         materialize_grads=True)
+            if mesh is not None:
+                sharded = {id(variables[k]) for k in per_image}
+                all_reduce_mean(mesh, [g for p, g in zip(params, grads) if id(p) not in sharded])
+                for p, g in zip(params, grads):
+                    if id(p) in sharded:
+                        g.div_(mesh.size)
             for p, g in zip(params, grads):
                 p.grad = g
             optimizer.step()

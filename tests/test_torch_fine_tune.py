@@ -34,6 +34,7 @@ from confignet_tpu.training.second_stage import ConfigNet as JaxConfigNet
 from helpers import TINY_FIRST_STAGE_CONFIG
 from confignet_tpu_torch.core.images import unit_range_to_uint8, write_png
 from confignet_tpu_torch.core.model_io import export_jax_params, export_jax_tensors, load_jax_params
+from confignet_tpu_torch.parallel import Mesh
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 torch.set_num_threads(1)
@@ -215,8 +216,10 @@ def test_fine_tune_writes_its_images_and_refuses_a_mesh(models, tmp_path):
     img = _photo(4)
     try:
         model.fine_tune_on_img(img, n_iters=2, img_output_dir=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="parallel"):
-            model.fine_tune_on_img(img, n_iters=1, mesh=object())
+        # three images do not shard over two ranks: JAX's ValueError, raised
+        # before any collective (so a mesh without a process group will do)
+        with pytest.raises(ValueError, match="fine-tune batch 3 must divide over 2 devices"):
+            model.fine_tune_on_img(_photo(4, n=3), n_iters=1, mesh=Mesh(None, 2, 0, "cpu"))
     finally:
         model._fine_tuned_generator_params = None
     assert sorted(p.name for p in tmp_path.iterdir()) == ["gt_img.png", "output_00.png",
