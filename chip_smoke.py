@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--out results.json] [--profile profile.txt]
     python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
-    python3 chip_smoke.py --loops-only | --demo-only | --mesh-only  (step 13, 14 or 15 only)
+    python3 chip_smoke.py --loops-only | --demo-only | --mesh-only | --512-only
+                                                     (step 13, 14, 15 or 16 only)
+    python3 chip_smoke.py --first-step-probe probe.json  (the first-step bisect only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; turns TF32 off.
@@ -162,7 +164,9 @@
    (b) A world-size-1 NCCL group, whose collectives are launched: one
    float32 stage-2 step at full width over it against mesh=None from the
    same weights, batch and draws under deterministic algorithms, losses,
-   gradients and weights bit-equal, with step 8's launches (4, 2, 24, 12)
+   gradients and weights bit-equal (and the step without a mesh bit-equal
+   to its own repeat: with --mesh-only, the process's first stage-2 step
+   against its second), with step 8's launches (4, 2, 24, 12)
    and exactly 4 gradient all-reduces (one per player) and 4 sums of the
    latent regression's batch statistics (2 forward, 2 backward); a
    ConfigNetServer(mesh=...) rendering 32 latents bit-equal to the server
@@ -176,9 +180,32 @@
    probe's (compare_train_paths' rule), the ranks bit-equal after the step;
    two timed steps (steps/s, peak memory a rank); their server's 32 renders
    within a mean abs uint8 difference of 1.0 of the single-process server's.
-16. Prints the kernels' JSON record (launches per path, and times on the
-   float32 train step's path), then as the last line {"ok": true, "device":
-   {...}}.
+16. The 512px path, at full width (the configs above with output_shape
+   (512, 512, 3): the generator adds map_2d_2c, a seventh AdaIN site of
+   (65536, 16), which takes the two-pass route forward and backward):
+   (a) the AdaIN forward at that site at B = 1, 12, 24 and 32 and its
+   backward at B = 1 and 12, float32 and bf16, each against its plain
+   version with step 3's and step 6's bounds, all on the two-pass route;
+   (b) ConfigNetServer(chunk=32) over the bf16 serving model: encode and
+   render_with_attribute 40 photos, generate 256 latents and sample 256
+   through a LatentGAN, each cold and warm with exactly (1, 0, 7, 0)
+   launches a generator chunk, img/s printed; the float32 kernel path
+   against the plain path on 8 photos (mean abs uint8 below 1.0); (c) a
+   reference release of the demo model at 512px written and loaded bit-equal
+   (step 14's load_release), then confignet_demo --resolution 512 --test_mode
+   in its three modes, each timed, with launches (3, 0, 21, 0), (1, 0, 7, 0)
+   and (1, 0, 14, 7); (d) fine_tune_on_img on one photo, float32 and bf16, 20
+   iterations of exactly (0, 0, 7, 7) launches (iters/s), and the float32
+   kernel path against the plain path along one trajectory (step 10's
+   rule); (e) the float32 stage-2 step (step 8's config at 512px, batch
+   24): one warm-up and 2 timed steps of exactly
+   (4, 2, 28, 14) launches (steps/s, peak GB), then the kernel path against
+   the plain path (step 7's rule); (f) with --profile, one 512px generate
+   chunk (<stem>_512_generate.txt) and a 5-iteration fine-tune call
+   (<stem>_512_fine_tune.txt).
+17. Prints the kernels' JSON record (launches per path, times on the
+   float32 train step's path and, as train_step_512, on the 512px step's),
+   then as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also exits non-zero without a CUDA device, and outside a checkout (the
@@ -207,6 +234,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from confignet_tpu_torch.apps import confignet_demo
 from confignet_tpu_torch.core import pickles, reference_import
@@ -713,6 +741,12 @@ TRAIN_STEP_LAUNCHES = (4, 2, 24, 12)
 FINE_TUNE_ITER_LAUNCHES = (0, 0, 6, 6)
 # per generator chunk of 32 at inference: one resample, six AdaIN sites
 CHUNK_LAUNCHES = (1, 0, 6, 0)
+# the same at 512px, whose generator adds a seventh AdaIN site (map_2d_2c,
+# (65536, 16) at full width, on the two-pass route): a generator chunk, a
+# fine-tune iteration, a train step
+CHUNK_LAUNCHES_512 = (1, 0, 7, 0)
+FINE_TUNE_ITER_LAUNCHES_512 = (0, 0, 7, 7)
+TRAIN_STEP_LAUNCHES_512 = (4, 2, 28, 14)
 
 
 def launch_counts():
@@ -731,14 +765,16 @@ def check_finite(losses, label):
                 raise AssertionError(f"{label}: {group}/{key} = {value.item()}")
 
 
-def train_run(model, dataset, label: str, card: str, kind: str):
-    """One warm-up step, then TRAIN_STEPS timed steps (host batches drawn
-    beforehand), each with exactly TRAIN_STEP_LAUNCHES kernel launches.  The
+def train_run(model, dataset, label: str, card: str, kind: str, per_step=TRAIN_STEP_LAUNCHES,
+              steps: int = TRAIN_STEPS):
+    """One warm-up step, then ``steps`` timed steps (host batches drawn
+    beforehand), each with exactly ``per_step`` kernel launches.  The
     launch counters are zeroed after the warm-up; returns (the counters after
     the timed steps, the run's record, the Adam first moments of the
     generator player after the warm-up step)."""
+    batch_size = model.config["batch_size"]
     step = model._build_train_step()
-    batches = [model._sample_host_batch(dataset, dataset) for _ in range(TRAIN_STEPS + 1)]
+    batches = [model._sample_host_batch(dataset, dataset) for _ in range(steps + 1)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     check_finite(step(batches[0]), label)
@@ -753,20 +789,20 @@ def train_run(model, dataset, label: str, card: str, kind: str):
         before = launch_counts()
         all_losses.append(step(batch))
         delta = tuple(after - b for after, b in zip(launch_counts(), before))
-        if delta != TRAIN_STEP_LAUNCHES:
+        if delta != per_step:
             raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {delta} in one "
-                                 f"step, expected {TRAIN_STEP_LAUNCHES}")
+                                 f"step, expected {per_step}")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     for losses in all_losses:
         check_finite(losses, label)
-    rec = dict(run=label, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=seconds,
-               steps_per_s=TRAIN_STEPS / seconds, img_per_s=TRAIN_STEPS * TRAIN_BATCH / seconds,
+    rec = dict(run=label, steps=steps, batch=batch_size, seconds=seconds,
+               steps_per_s=steps / seconds, img_per_s=steps * batch_size / seconds,
                warmup_s=warmup_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=dict(zip(LAUNCH_NAMES, launches)),
                last_losses={g: {k: float(v) for k, v in d.items()} for g, d in all_losses[-1].items()})
-    print(f"train {label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} in {seconds * 1e3:.1f} ms = "
+    print(f"train {label}: {steps} steps of {batch_size} in {seconds * 1e3:.1f} ms = "
           f"{rec['steps_per_s']:.3f} steps/s, {rec['img_per_s']:.1f} img/s on {kind} ({card}); "
           f"warm-up {warmup_s:.1f} s; peak {rec['peak_memory_gb']:.1f} GB; launches {launches}; "
           f"loss_sum g {rec['last_losses']['g']['loss_sum']:.4f} d "
@@ -814,14 +850,15 @@ def pinned_draws(model, rng) -> tuple:
     latent-D reals and the G reals, rotations for the D fakes and the G
     reals, and flips for the D and synth-D reals; stage 2 draws only flips,
     for the D, synth-D and latent-D reals and the G reals."""
-    half = TRAIN_BATCH // 2
+    batch = model.config["batch_size"]
+    half = batch // 2
     if isinstance(model, ConfigNet):
-        return [], [], [rng.random(n) < 0.5 for n in (TRAIN_BATCH,) * 3 + (TRAIN_BATCH - half,)]
+        return [], [], [rng.random(n) < 0.5 for n in (batch,) * 3 + (batch - half,)]
     latent_dim = model.config["latent_dim"]
     latents = [rng.normal(size=(n, latent_dim)).astype(np.float32)
-               for n in (TRAIN_BATCH, TRAIN_BATCH, TRAIN_BATCH - half)]
-    rotations = [poses(n, rng) for n in (TRAIN_BATCH, TRAIN_BATCH - half)]
-    return latents, rotations, [rng.random(TRAIN_BATCH) < 0.5 for _ in range(2)]
+               for n in (batch, batch, batch - half)]
+    rotations = [poses(n, rng) for n in (batch, batch - half)]
+    return latents, rotations, [rng.random(batch) < 0.5 for _ in range(2)]
 
 
 def pinned_step(model, batch, draws, label: str) -> tuple:
@@ -866,7 +903,8 @@ def train_distances(result, plain, player_trees) -> dict:
     return out
 
 
-def compare_train_paths(model_k, dataset, label: str) -> dict:
+def compare_train_paths(model_k, dataset, label: str, config=None,
+                        launches=TRAIN_STEP_LAUNCHES) -> dict:
     """One float32 step of the kernel-path model and of a plain-path model
     of the same class (_rotate_plain, plain AdaIN) from the same weights,
     fresh optimizers, the same host batch and the same draws.
@@ -879,7 +917,10 @@ def compare_train_paths(model_k, dataset, label: str) -> dict:
     relative L2 gradient distance) are widened, per quantity, to 4x the
     distance of a probe: the plain path with only the resample rounded
     differently (``_rotate_via_float64``).  The kernel path changes the
-    rounding at 7 sites forward and backward, the probe at one."""
+    rounding at 7 sites forward and backward, the probe at one.  ``config``
+    (model_k's, default the float32 training config) builds the plain-path
+    models; the kernel-path step must launch exactly ``launches``."""
+    config = config or train_config("float32")
     weights = model_k.get_weights()
     model_k.set_weights(weights)
     generator_module._ROTATION_IMPLS.update(gather_plain=_rotate_plain,
@@ -892,8 +933,7 @@ def compare_train_paths(model_k, dataset, label: str) -> dict:
 
     results = {}
     for name, rotation in (("plain", "gather_plain"), ("probe", "gather_via_float64")):
-        model = type(model_k)(train_config("float32", rotation_resample_train=rotation,
-                                           adain_impl="plain"))
+        model = type(model_k)(dict(config, rotation_resample_train=rotation, adain_impl="plain"))
         model.set_weights(weights)
         before = launch_counts()
         results[name] = step(model)
@@ -904,7 +944,7 @@ def compare_train_paths(model_k, dataset, label: str) -> dict:
     before = launch_counts()
     results["kernel"] = step(model_k)
     delta = tuple(a - b for a, b in zip(launch_counts(), before))
-    if delta != TRAIN_STEP_LAUNCHES:
+    if delta != launches:
         raise AssertionError(f"{label}: the kernel-path train step launched {delta}")
 
     def distances(name):
@@ -947,10 +987,11 @@ def give_encoder_heads_weights(model, photos):
             head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * std)
 
 
-def fine_tune_run(model, photo, label: str, card: str, kind: str):
+def fine_tune_run(model, photo, label: str, card: str, kind: str, iters: int = FINE_TUNE_ITERS,
+                  per_iteration=FINE_TUNE_ITER_LAUNCHES):
     """One warm fine_tune_on_img call of 1 iteration, then a timed call of
-    FINE_TUNE_ITERS, each iteration with exactly FINE_TUNE_ITER_LAUNCHES
-    kernel launches (the step is wrapped to count them).  The counters are
+    ``iters``, each iteration with exactly ``per_iteration`` kernel launches
+    (the step is wrapped to count them).  The counters are
     zeroed just before the timed call.  Checks a finite final loss, a
     fine-tuned generator unlike the EMA, the EMA unchanged, and a server's
     refresh() rendering with the fine-tuned weights.  Returns (the counters
@@ -976,16 +1017,16 @@ def fine_tune_run(model, photo, label: str, card: str, kind: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        embeddings, rotations = model.fine_tune_on_img(photo, n_iters=FINE_TUNE_ITERS)
+        embeddings, rotations = model.fine_tune_on_img(photo, n_iters=iters)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
         model._fine_tune_step_cache[key] = step
     launches = launch_counts()
-    if per_iter != [FINE_TUNE_ITER_LAUNCHES] * FINE_TUNE_ITERS:
+    if per_iter != [per_iteration] * iters:
         raise AssertionError(f"fine-tune {label}: launches {LAUNCH_NAMES} per iteration "
-                             f"{sorted(set(per_iter))}, expected {FINE_TUNE_ITER_LAUNCHES}")
-    if launches != tuple(FINE_TUNE_ITERS * n for n in FINE_TUNE_ITER_LAUNCHES):
+                             f"{sorted(set(per_iter))}, expected {per_iteration}")
+    if launches != tuple(iters * n for n in per_iteration):
         raise AssertionError(f"fine-tune {label}: {launches} launches in the call")
     final_loss = float(model.fine_tune_losses[-1])
     if (not np.isfinite(final_loss) or embeddings.shape != (1, model.config["latent_dim"])
@@ -1006,12 +1047,12 @@ def fine_tune_run(model, photo, label: str, card: str, kind: str):
     if np.array_equal(fresh, stale) or not refresh_diff < 1.0:
         raise AssertionError(f"fine-tune {label}: refresh() did not render the fine-tuned weights "
                              f"({refresh_diff})")
-    rec = dict(run=label, iters=FINE_TUNE_ITERS, seconds=seconds,
-               iters_per_s=FINE_TUNE_ITERS / seconds, warmup_s=warmup_s,
+    rec = dict(run=label, iters=iters, seconds=seconds, iters_per_s=iters / seconds,
+               warmup_s=warmup_s,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=dict(zip(LAUNCH_NAMES, launches)), final_loss=final_loss,
                refresh_vs_generate_images=refresh_diff)
-    print(f"fine-tune {label}: {FINE_TUNE_ITERS} iterations in {seconds * 1e3:.1f} ms = "
+    print(f"fine-tune {label}: {iters} iterations in {seconds * 1e3:.1f} ms = "
           f"{rec['iters_per_s']:.2f} iters/s on {kind} ({card}); warm-up {warmup_s:.1f} s; peak "
           f"{rec['peak_memory_gb']:.2f} GB; launches {launches}; final loss {final_loss:.6g}; "
           f"refreshed server vs generate_images {refresh_diff:.4f}", flush=True)
@@ -1041,7 +1082,8 @@ def fine_tune_iteration(model, state, values, images):
     return float(losses["loss_sum"]), gradient
 
 
-def compare_fine_tune_paths(model_k, photo) -> dict:
+def compare_fine_tune_paths(model_k, photo, config=None,
+                            per_iteration=FINE_TUNE_ITER_LAUNCHES) -> dict:
     """Float32 fine-tune iterations with the kernels and with their plain
     versions (plain AdaIN; the gather resample either way) along one
     trajectory: FINE_TUNE_COMPARE_ITERS iterations of the plain path's
@@ -1063,12 +1105,15 @@ def compare_fine_tune_paths(model_k, photo) -> dict:
     along the sign of its gradient, and rounding sets the signs of near-zero
     gradients, so after 5 free-running iterations even the probe's render
     differs from the plain path's by about 30 uint8 (NVIDIA H100, this
-    script)."""
+    script).  ``config`` (model_k's, default the float32 serving config)
+    builds the plain-path models; each kernel-path iteration must launch
+    exactly ``per_iteration``."""
+    config = config or serving_config("float32")
     generator_module._ROTATION_IMPLS["gather_via_float64_ft"] = _rotate_via_float64_ft
     weights = model_k.get_weights()
     models = {}
     for name in ("plain", "probe"):
-        model = ConfigNet(serving_config("float32", rotation_resample="gather", adain_impl="plain"))
+        model = ConfigNet(dict(config, rotation_resample="gather", adain_impl="plain"))
         model.set_weights(weights)
         if name == "probe":
             model._generator_ft = model._generator("gather_via_float64_ft").to(model.device).eval()
@@ -1094,7 +1139,7 @@ def compare_fine_tune_paths(model_k, photo) -> dict:
             before = launch_counts()
             results[name] = fine_tune_iteration(model, state, values, images)
             delta = tuple(a - b for a, b in zip(launch_counts(), before))
-            if delta != (FINE_TUNE_ITER_LAUNCHES if name == "kernel" else (0, 0, 0, 0)):
+            if delta != (per_iteration if name == "kernel" else (0, 0, 0, 0)):
                 raise AssertionError(f"the {name}-path fine-tune iteration launched {delta}")
         plain_loss, plain_gradient = results["plain"]
         plain_losses.append(plain_loss)
@@ -1145,8 +1190,8 @@ def counted(fn, expected, label: str):
     return out, launches
 
 
-def check_renders(imgs, n: int, label: str) -> None:
-    if imgs.shape != (n, 256, 256, 3) or imgs.dtype != np.uint8:
+def check_renders(imgs, n: int, label: str, size: int = 256) -> None:
+    if imgs.shape != (n, size, size, 3) or imgs.dtype != np.uint8:
         raise AssertionError(f"{label} gave {imgs.shape} {imgs.dtype}")
     if imgs.std() == 0 or np.all(imgs[0] == imgs[1]):
         raise AssertionError(f"{label} gave constant images")
@@ -2219,12 +2264,12 @@ def load_release(model, gan, directory: str):
     return paths, loaded, loaded_gan, dict(write_s=write_s, load_s=load_s, leaves=n_leaves)
 
 
-def demo_mode(label: str, fn, card: str, kind: str):
-    """fn() with DEMO_LAUNCHES[label] counted; the frame it returns must be a
-    finite uint8 grid that varies.  Returns (the frame, the launches, the
-    record)."""
+def demo_mode(label: str, fn, card: str, kind: str, expected=None):
+    """fn() with ``expected`` (default DEMO_LAUNCHES[label]) counted; the
+    frame it returns must be a finite uint8 grid that varies.  Returns (the
+    frame, the launches, the record)."""
     t0 = time.perf_counter()
-    frame, launches = counted(fn, DEMO_LAUNCHES[label], f"demo {label}")
+    frame, launches = counted(fn, expected or DEMO_LAUNCHES[label], f"demo {label}")
     seconds = time.perf_counter() - t0
     if frame is None or frame.dtype != np.uint8 or frame.ndim != 3 or frame.std() == 0:
         raise AssertionError(f"demo {label} gave the frame {None if frame is None else frame.shape}")
@@ -2437,11 +2482,11 @@ def single_rank_group(dataset, card: str, kind: str) -> tuple:
     and a fine-tune, each over the mesh and without it from the same
     weights, inputs and draws, under deterministic algorithms; each pair
     bit-equal.  The mesh step launches step 8's kernels and STEP_COLLECTIVES.
-    Each pair runs warm: under deterministic algorithms the first stage-2
-    step of a process differs bitwise from every later one from the same
-    weights (the D update's gradient; NVIDIA H100), so a warm-up call at the
-    same shapes comes first.  Returns (the step's
-    launches, the server's launches, the record)."""
+    No call runs warm first: the step without a mesh runs twice from the
+    same weights, and the two (with --mesh-only, the process's first and
+    second stage-2 steps) must be bit-equal, as the JAX step's are
+    (losses/gan.lead_autograd_sequence).  Returns (the step's launches, the
+    server's launches, the record)."""
     rec = {}
     if torch.device(MESH_DEVICE).type == "cuda":
         torch.cuda.set_device(MESH_DEVICE)
@@ -2454,10 +2499,18 @@ def single_rank_group(dataset, card: str, kind: str) -> tuple:
         draws = pinned_draws(model, np.random.default_rng(MESH_SEED))
         model._batch_rng = np.random.RandomState(MESH_SEED)
         batch = model._sample_host_batch(dataset, dataset)
-        pinned_step(model, batch, draws, "mesh warm-up step")
-        model.set_weights(weights)
         alone = pinned_step(model, batch, draws, "mesh step without a mesh")
         alone_weights = flat_state(model.get_weights())
+        model.set_weights(weights)
+        again = pinned_step(model, batch, draws, "the same step again")
+        differ = [k for k, v in alone[0].items() if again[0][k] != v]
+        differ += unequal_arrays(flat_state(alone[1]), flat_state(again[1]))
+        differ += unequal_arrays(alone_weights, flat_state(model.get_weights()))
+        if differ:
+            raise AssertionError(f"a stage-2 step and its repeat from the same weights differ: "
+                                 f"{differ[:10]}")
+        print(f"mesh: a float32 stage-2 step and its repeat from the same weights, batch and draws "
+              f"bit-equal ({len(alone_weights)} weight leaves, the gradients, the losses)", flush=True)
         del model
         torch.cuda.empty_cache()
 
@@ -2502,10 +2555,7 @@ def single_rank_group(dataset, card: str, kind: str) -> tuple:
         give_encoder_heads_weights(model, dataset.imgs[:8])
         latents = rng.normal(size=(SERVE_CHUNK, model.config["latent_dim"])).astype(np.float32)
         rotations = poses(SERVE_CHUNK, rng)
-        alone_server = ConfigNetServer(model, chunk=SERVE_CHUNK, device=MESH_DEVICE)
-        alone_server.generate(latents, rotations)  # warm-up
-        alone = alone_server.generate(latents, rotations)
-        del alone_server
+        alone = ConfigNetServer(model, chunk=SERVE_CHUNK, device=MESH_DEVICE).generate(latents, rotations)
         server = ConfigNetServer(model, chunk=SERVE_CHUNK, mesh=mesh)
         zero_collectives(mesh)
         renders, serve_launches = counted(lambda: server.generate(latents, rotations), CHUNK_LAUNCHES,
@@ -2522,8 +2572,6 @@ def single_rank_group(dataset, card: str, kind: str) -> tuple:
 
         # the fine-tune
         photo = dataset.imgs[0]
-        model.fine_tune_on_img(photo, n_iters=1)  # warm-up
-        model._fine_tuned_generator_params = None
         ends = []
         for over in (None, mesh):
             expected = tuple(MESH_FINE_TUNE_ITERS * n for n in FINE_TUNE_ITER_LAUNCHES)
@@ -2735,6 +2783,346 @@ def mesh_path(card: str, kind: str) -> tuple:
                                                 two_ranks=two, seconds=seconds)
 
 
+# -- the first stage-2 step of a process: an op-by-op bisect ---------------------
+
+
+def _digest(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums over a tensor's bits (all of it, every other element):
+    any single changed bit changes them."""
+    t = t.detach()
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    t = t.contiguous().reshape(-1)
+    if t.is_complex():
+        t = torch.view_as_real(t).reshape(-1)
+    size = t.element_size()
+    bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}[size])
+    return torch.stack([bits.sum(dtype=torch.int64), bits[::2].sum(dtype=torch.int64)])
+
+
+class OpDigests(TorchDispatchMode):
+    """Records, for every ATen op, its name and digests of its tensor inputs
+    and outputs (outputs of the allocators, whose memory is uninitialised,
+    are not digested)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names, self.inputs, self.outputs = [], [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func)
+        tensors_in = [a for a in torch.utils._pytree.tree_leaves((args, kwargs))
+                      if isinstance(a, torch.Tensor)]
+        tensors_out = [a for a in torch.utils._pytree.tree_leaves(out)
+                       if isinstance(a, torch.Tensor)]
+        if tensors_in or tensors_out:
+            self.names.append(name)
+            self.inputs.append([_digest(t) for t in tensors_in])
+            self.outputs.append([] if "empty" in name else [_digest(t) for t in tensors_out])
+        return out
+
+    def host(self) -> tuple:
+        """(names, input digests, output digests) as host lists."""
+        flat = [d for group in self.inputs + self.outputs for d in group]
+        values = [None] * len(flat)
+        for on_card in (True, False):
+            index = [i for i, d in enumerate(flat) if d.is_cuda == on_card]
+            if index:
+                for i, value in zip(index, torch.stack([flat[i] for i in index]).cpu().tolist()):
+                    values[i] = value
+        it = iter(values)
+        ins = [[tuple(next(it)) for _ in group] for group in self.inputs]
+        outs = [[tuple(next(it)) for _ in group] for group in self.outputs]
+        return self.names, ins, outs
+
+
+def computing_ops(names: list) -> list:
+    """Indices of the ops that compute: the allocators (whose memory is
+    uninitialised) and the first call's device-constant builds (a
+    ``lift_fresh`` and its copy to the device, core/constants.py) left out."""
+    keep, i = [], 0
+    while i < len(names):
+        if names[i] == "aten.lift_fresh.default":
+            i += 2 if names[i + 1:i + 2] == ["aten._to_copy.default"] else 1
+            continue
+        if "empty" not in names[i]:
+            keep.append(i)
+        i += 1
+    return keep
+
+
+def first_step_probe(card: str, kind: str, path: str) -> dict:
+    """Three float32 stage-2 steps at full width (step 8's config, batch 24)
+    from the same weights, host batch and draws under deterministic
+    algorithms, each its own fresh step (pinned_step), the first the first
+    of the process; every op's inputs and outputs digested (OpDigests).
+    Reports whether step 1 equals step 2 and step 2 step 3 bit for bit, and,
+    over the ops that compute (computing_ops), the first position where the
+    two steps run another op and the first before it whose outputs or
+    inputs differ; writes the report to ``path``."""
+    dataset = FakeDataset(64, 256, {name: dims[0] for name, dims
+                                    in TRAIN_CONFIG["facemodel_inputs"].items()}, seed=0)
+    runs = []
+    with deterministic_algorithms():
+        model = ConfigNet(train_config("float32"))
+        give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
+        weights = model.get_weights()
+        draws = pinned_draws(model, np.random.default_rng(8))
+        batch = model._sample_host_batch(dataset, dataset)
+        model._build_train_step()  # the first build's own ops stay out of the digests
+        for i in range(3):
+            model.set_weights(weights)
+            digests = OpDigests()
+            with digests:
+                losses, moments = pinned_step(model, batch, draws, f"probe step {i + 1}")
+            torch.cuda.synchronize()
+            runs.append(dict(losses=losses, moments=flat_state(moments), ops=digests.host(),
+                             weights=flat_state(model.get_weights())))
+    rec = {"ops": [len(r["ops"][0]) for r in runs]}
+    for a, b in ((0, 1), (1, 2)):
+        first, second = runs[a], runs[b]
+        label = f"step {a + 1} vs step {b + 1}"
+        differ = unequal_arrays(first["moments"], second["moments"])
+        differ_weights = unequal_arrays(first["weights"], second["weights"])
+        differ_losses = [k for k, v in first["losses"].items() if second["losses"][k] != v]
+        names_a, ins_a, outs_a = first["ops"]
+        names_b, ins_b, outs_b = second["ops"]
+        ka, kb = computing_ops(names_a), computing_ops(names_b)
+        order = next((p for p, (i, j) in enumerate(zip(ka, kb)) if names_a[i] != names_b[j]),
+                     None if len(ka) == len(kb) else min(len(ka), len(kb)))
+        limit = len(ka) if order is None else order
+        first_out = next((p for p in range(limit) if outs_a[ka[p]] != outs_b[kb[p]]), None)
+        first_in = next((p for p in range(limit) if ins_a[ka[p]] != ins_b[kb[p]]), None)
+        item = dict(gradients_differ=len(differ), weights_differ=len(differ_weights),
+                    losses_differ=differ_losses, computing_ops=[len(ka), len(kb)],
+                    first_order_change=order, first_output_change=first_out,
+                    first_input_change=first_in)
+        if order is not None:
+            item["order_change"] = {name: [names[k[p]] for p in range(max(0, order - 6), order + 6)
+                                           if p < len(k)]
+                                    for name, names, k in ((f"step {a + 1}", names_a, ka),
+                                                           (f"step {b + 1}", names_b, kb))}
+        rec[label] = item
+        print(f"first-step probe {label}: {json.dumps(item)}", flush=True)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps({"card": card, "kind": kind, **rec}, indent=1))
+    return rec
+
+
+# -- step 16: the 512px path ---------------------------------------------------
+
+SIZE_512 = 512
+SERVE_512_PHOTOS = 40  # encode and render_with_attribute: two chunks of 32
+GENERATE_512 = 256  # generate and sample: 8 chunks of 32
+FINE_TUNE_512_ITERS = 20
+TRAIN_512_STEPS = 2
+ADAIN_512_BATCHES = (1, TRAIN_BATCH // 2, TRAIN_BATCH, SERVE_CHUNK)  # the fine-tune, G step, D, serving
+ADAIN_512_BACKWARD_BATCHES = (1, TRAIN_BATCH // 2)  # the fine-tune, the G step's halves
+# the demo at 512px: each 256px mode's generator passes, each with the seventh site
+DEMO_LAUNCHES_512 = {"no_input": (3, 0, 21, 0), "single_photo": (1, 0, 14, 7),
+                     "photo_list": (1, 0, 7, 0)}
+
+
+def at_512(config: dict) -> dict:
+    """A config at 512px: the generator adds map_2d_2c, the discriminators,
+    the regressor, the encoder and the perceptual losses see 512x512."""
+    return dict(config, output_shape=(SIZE_512, SIZE_512, 3))
+
+
+def serve_512(photos, card: str, kind: str, profile_stem=None):
+    """(b) ConfigNetServer(chunk=32) over the bf16 serving model at 512px:
+    encode and render_with_attribute SERVE_512_PHOTOS photos, generate and
+    sample (a LatentGAN of random weights, truncation 0.7) GENERATE_512,
+    each cold then warm, with exactly CHUNK_LAUNCHES_512 a generator chunk;
+    then the float32 kernel path against the plain path on 8 photos.
+    Returns (the launches of the timed requests, the record)."""
+    rng = np.random.default_rng(160)
+    model = ConfigNet(at_512(serving_config("bfloat16")))
+    give_encoder_heads_weights(model, photos[:SERVE_CHUNK])
+    server = ConfigNetServer(model, LatentGAN({"latent_dim": model.config["latent_dim"]}),
+                             chunk=SERVE_CHUNK)
+    n_blend = model.config["facemodel_inputs"]["blendshape_values"][0]
+    blend = rng.uniform(0, 1, size=(1, n_blend)).astype(np.float32)
+    latents = rng.normal(size=(GENERATE_512, model.config["latent_dim"])).astype(np.float32)
+    rotations = poses(GENERATE_512, rng)
+    n, chunks = len(photos), -(-len(photos) // SERVE_CHUNK)
+    requests = [
+        ("encode", n, 0, lambda: server.encode(photos)),
+        ("render_with_attribute", n, chunks, lambda: server.render_with_attribute(
+            photos, "blendshape_values", blend)),
+        ("generate", GENERATE_512, GENERATE_512 // SERVE_CHUNK,
+         lambda: server.generate(latents, rotations)),
+        ("sample", GENERATE_512, GENERATE_512 // SERVE_CHUNK,
+         lambda: server.sample(GENERATE_512, rotations=rotations, truncation=0.7)),
+    ]
+    zero_launch_counts()
+    served, outputs = [], {}
+    for name, n_images, gen_chunks, call in requests:
+        for attempt in ("cold", "warm"):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = call()
+            seconds = time.perf_counter() - t0
+            delta = tuple(a - b for a, b in zip(launch_counts(), before))
+            if delta != tuple(gen_chunks * k for k in CHUNK_LAUNCHES_512):
+                raise AssertionError(f"serve 512 {name}: launches {delta} for {gen_chunks} "
+                                     f"generator chunks of {CHUNK_LAUNCHES_512}")
+            served.append(dict(request=name, run=attempt, images=n_images, seconds=seconds,
+                               img_per_s=n_images / seconds, launches=list(delta)))
+            print(f"serve 512px {name} ({attempt}): {n_images} images in {seconds * 1e3:.1f} ms = "
+                  f"{n_images / seconds:.1f} img/s at bfloat16, chunk {SERVE_CHUNK}, on {kind} "
+                  f"({card}); launches {delta}", flush=True)
+        outputs[name] = out
+    launches = launch_counts()
+    lat, rot = outputs["encode"]
+    if lat.shape != (n, 145) or rot.shape != (n, 3) or not (np.isfinite(lat).all()
+                                                             and np.isfinite(rot).all()):
+        raise AssertionError(f"serve 512 encode gave {lat.shape} {rot.shape}")
+    if lat[:, 0].std() == 0 or rot[:, 0].std() == 0:
+        raise AssertionError("serve 512 encode gave the same latent for every photo")
+    for name, n_images in (("render_with_attribute", n), ("generate", GENERATE_512),
+                           ("sample", GENERATE_512)):
+        check_renders(outputs[name], n_images, f"serve 512 {name}", SIZE_512)
+    if profile_stem:
+        chunk = (latents[:SERVE_CHUNK], rotations[:SERVE_CHUNK])
+        profile(f"generate chunk {SERVE_CHUNK} at 512px (bfloat16)",
+                lambda: server.generate(*chunk), profile_stem + "_512_generate.txt")
+    del server, model, outputs
+    torch.cuda.empty_cache()
+
+    model_k = ConfigNet(at_512(serving_config("float32")))
+    give_encoder_heads_weights(model_k, photos[:8])
+    model_p = ConfigNet(at_512(serving_config("float32", rotation_resample="gather",
+                                              adain_impl="plain")), initialize=False)
+    model_p.set_weights(model_k.get_weights())
+    out_p, _ = counted(lambda: ConfigNetServer(model_p, chunk=8).render_with_attribute(
+        photos[:8], "blendshape_values", blend), (0, 0, 0, 0), "serve 512 plain path")
+    out_k, _ = counted(lambda: ConfigNetServer(model_k, chunk=8).render_with_attribute(
+        photos[:8], "blendshape_values", blend), CHUNK_LAUNCHES_512, "serve 512 kernel path")
+    diff = np.abs(out_k.astype(int) - out_p.astype(int))
+    e2e = float(diff.mean())
+    print(f"serve 512px float32 kernel vs plain path: mean abs uint8 difference {e2e:.4f} (max "
+          f"{int(diff.max())}), bound 1.0", flush=True)
+    if not e2e < 1.0 or out_k.std() == 0:
+        raise AssertionError(f"512px renders: kernel path and plain path disagree: {e2e}")
+    return launches, dict(requests=served, e2e_mean_abs_uint8=e2e)
+
+
+def demo_512(photos, card: str, kind: str):
+    """(c) A reference release of the float32 demo model at 512px, written and
+    loaded bit-equal (load_release), then confignet_demo --resolution 512
+    --test_mode in its three input modes with DEMO_LAUNCHES_512.  Returns
+    (the three modes' launches summed, the record)."""
+    rng = np.random.default_rng(161)
+    model = ConfigNet(at_512(demo_config("float32")))
+    give_encoder_heads_weights(model, photos[:8])
+    model.facemodel_param_distributions = {
+        name: fit_distribution(rng.normal(size=(256, dims[0])).astype(np.float32), "exemplar")
+        for name, dims in model.config["facemodel_inputs"].items()}
+    gan = LatentGAN({"latent_dim": model.config["latent_dim"]})
+    total, modes = np.zeros(4, np.int64), {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_512_") as directory:
+        (model_json, gan_json), loaded, loaded_gan, release = load_release(model, gan, directory)
+        del model, gan
+        argv = ["--test_mode", "--resolution", str(SIZE_512), "--device", DEMO_DEVICE,
+                "--confignet_model_path", model_json, "--latent_gan_model_path", gan_json]
+        np.random.seed(162)
+        runs = (("no_input", lambda: confignet_demo.run(argv)),
+                ("photo_list", lambda: confignet_demo.run_loop(
+                    confignet_demo.parse_args(argv), list(photos[:DEMO_PHOTOS]), None, loaded)),
+                ("single_photo", lambda: confignet_demo.run_loop(
+                    confignet_demo.parse_args(argv), [photos[DEMO_PHOTOS]], None, loaded)))
+        for label, fn in runs:
+            frame, launches, modes[label] = demo_mode(label, fn, card, kind, DEMO_LAUNCHES_512[label])
+            if frame.shape[0] % SIZE_512:  # rows of 512px renders
+                raise AssertionError(f"demo 512 {label}: a frame of {frame.shape}")
+            total += launches
+        if loaded._fine_tuned_generator_params is None or len(loaded.fine_tune_losses) != 1:
+            raise AssertionError("the 512px single-photo mode did not fine-tune")
+    del loaded, loaded_gan
+    torch.cuda.empty_cache()
+    return tuple(int(n) for n in total), dict(release=release, modes=modes)
+
+
+def fine_tune_512(photos, card: str, kind: str, profile_stem=None):
+    """(d) fine_tune_on_img on one 512px photo, float32 then bfloat16
+    (fine_tune_run: FINE_TUNE_512_ITERS iterations of exactly
+    FINE_TUNE_ITER_LAUNCHES_512), and the float32 kernel path against the
+    plain path along one trajectory (compare_fine_tune_paths).  Returns (the
+    float32 run's launches, the record)."""
+    photo, config = photos[0], at_512(serving_config("float32"))
+    model = ConfigNet(config)
+    give_encoder_heads_weights(model, photos[:8])
+    launches, f32 = fine_tune_run(model, photo, "512px float32", card, kind,
+                                  FINE_TUNE_512_ITERS, FINE_TUNE_ITER_LAUNCHES_512)
+    if profile_stem:
+        profile("fine-tune at 512px (float32, 5 iterations)",
+                lambda: model.fine_tune_on_img(photo, n_iters=5), profile_stem + "_512_fine_tune.txt")
+        model._fine_tuned_generator_params = None
+    paths = compare_fine_tune_paths(model, photo, config, FINE_TUNE_ITER_LAUNCHES_512)
+    del model
+    torch.cuda.empty_cache()
+    model = ConfigNet(at_512(serving_config("bfloat16")))
+    give_encoder_heads_weights(model, photos[:8])
+    _, bf16 = fine_tune_run(model, photo, "512px bfloat16", card, kind, FINE_TUNE_512_ITERS,
+                            FINE_TUNE_ITER_LAUNCHES_512)
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(runs=[f32, bf16], paths=paths)
+
+
+def train_512(card: str, kind: str):
+    """(e) The float32 stage-2 step at 512px, step 8's batch of 24 (32.6 GB
+    at its peak on an 80 GB H100), on 64 random images: one warm-up and TRAIN_512_STEPS timed steps of exactly
+    TRAIN_STEP_LAUNCHES_512 (train_run: steps/s, peak GB), every
+    generator-player parameter with a gradient and the EMA moving, then the
+    kernel path against the plain path (compare_train_paths).  Returns (the
+    timed steps' launches, the record)."""
+    config = at_512(train_config("float32"))
+    dataset = FakeDataset(64, SIZE_512, {name: dims[0] for name, dims
+                                         in TRAIN_CONFIG["facemodel_inputs"].items()}, seed=16)
+    trainer = ConfigNet(config)
+    give_encoder_heads_weights(trainer, dataset.imgs[:TRAIN_BATCH])
+    ema_before = {k: v.clone() for k, v in trainer.generator_smoothed.state_dict().items()}
+    launches, rec, moments = train_run(trainer, dataset, "stage2 512px float32", card, kind,
+                                       TRAIN_STEP_LAUNCHES_512, TRAIN_512_STEPS)
+    rec.update(check_generator_gradients_and_ema(trainer, moments, ema_before,
+                                                 "stage2 512px float32"))
+    paths = compare_train_paths(trainer, dataset, "stage2 512px float32", config,
+                                TRAIN_STEP_LAUNCHES_512)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, dict(run=rec, paths=paths)
+
+
+def path_512(card: str, kind: str, records: list, profile_stem=None) -> tuple:
+    """Step 16: the 512px path at full width ((a) to (e) above, (f) with
+    ``profile_stem``).  Returns ({path: launches}, the record)."""
+    t_step = time.perf_counter()
+    for batch in ADAIN_512_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            adain_phase(batch, *ADAIN_SITE_512, dtype, records)
+    for batch in ADAIN_512_BACKWARD_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            adain_backward_phase(batch, *ADAIN_SITE_512, dtype, records)
+    routes = {f"{r['kernel']} B{r['batch']} {r['dtype']}": r["route"] for r in records
+              if r.get("site") == site(*ADAIN_SITE_512)}
+    if set(routes.values()) != {"two_pass"}:
+        raise AssertionError(f"the 512 site left the two-pass route: {routes}")
+    torch.cuda.empty_cache()
+    photos = np.random.default_rng(16).integers(0, 256, (SERVE_512_PHOTOS, SIZE_512, SIZE_512, 3),
+                                                dtype=np.uint8)
+    launches, rec = {}, {"routes": routes}
+    launches["serve_512"], rec["serve"] = serve_512(photos, card, kind, profile_stem)
+    launches["demo_512"], rec["demo"] = demo_512(photos, card, kind)
+    launches["fine_tune_512"], rec["fine_tune"] = fine_tune_512(photos, card, kind, profile_stem)
+    launches["train_512"], rec["train"] = train_512(card, kind)
+    rec["seconds"] = time.perf_counter() - t_step
+    print(f"512px: step 16 took {rec['seconds']:.1f} s", flush=True)
+    return launches, rec
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -2786,6 +3174,13 @@ def main() -> int:
     parser.add_argument("--mesh-only", action="store_true",
                         help="only build the kernels and run step 15, the mesh path, then stop "
                         "(no kernels line and no result line)")
+    parser.add_argument("--512-only", dest="only_512", action="store_true",
+                        help="only build the kernels and run step 16, the 512px path, then stop "
+                        "(no kernels line and no result line)")
+    parser.add_argument("--first-step-probe", metavar="PATH",
+                        help="only build the kernels, run three float32 stage-2 steps from the same "
+                        "weights with every op digested, write where the first differs to PATH "
+                        "and stop")
     parser.add_argument("--rotate-sweep", metavar="PATH",
                         help="only build the kernels, time every rotation tile that fits at the "
                         "main path's shapes, write the rows to PATH and stop")
@@ -2814,6 +3209,9 @@ def main() -> int:
     if args.rotate_sweep:
         rotate_sweep(args.rotate_sweep)
         return 0
+    if args.first_step_probe:
+        first_step_probe(card, kind, args.first_step_probe)
+        return 0
     profile_stem = args.profile and str(Path(args.profile).with_name(Path(args.profile).stem))
     if args.loops_only:
         _, loops = training_loops(card, kind, profile_stem)
@@ -2835,6 +3233,16 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "mesh": mesh}, indent=1))
         print(f"total {time.perf_counter() - t_start:.1f} s (step 15 only)")
+        return 0
+    if args.only_512:
+        records = []
+        launches_512, rec_512 = path_512(card, kind, records, profile_stem)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "phases": records,
+                                                  "launches": launches_512, "path_512": rec_512},
+                                                 indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 16 only)")
         return 0
 
     # -- 3. kernel phases ------------------------------------------------------
@@ -3040,12 +3448,22 @@ def main() -> int:
     path_launches["train_mesh"], path_launches["serve_mesh"], mesh = mesh_path(card, kind)
     torch.cuda.empty_cache()
 
-    # -- 16. records -----------------------------------------------------------------
-    def times(phase_counts, dtype="float32"):
+    # -- 16. the 512px path: the seventh AdaIN site, serving, the demo, fine-tune, training --
+    launches_512, rec_512 = path_512(card, kind, records, profile_stem)
+    path_launches.update(launches_512)
+    torch.cuda.empty_cache()
+
+    # -- 17. records -----------------------------------------------------------------
+    sites_256 = {site(*s) for s in ADAIN_SITES_256}
+    sites_512 = sites_256 | {site(*ADAIN_SITE_512)}
+
+    def times(phase_counts, dtype="float32", sites=sites_256):
         """The phases at a path's shapes, each counted as often as the path
-        launches it: error, times and bound of the path's launches."""
+        launches it (AdaIN at the given sites): error, times and bound of the
+        path's launches."""
         picked = [(r, n) for r in records for (name, batch), n in phase_counts.items()
-                  if r["kernel"] == name and r["batch"] == batch and r["dtype"] == dtype]
+                  if r["kernel"] == name and r["batch"] == batch and r["dtype"] == dtype
+                  and r.get("site", "") in sites | {""}]
         summed = {key: sum(r[key] * n for r, n in picked)
                   for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                               "library_device_ms")}
@@ -3062,10 +3480,17 @@ def main() -> int:
                 "launches": path_launches["train_stage2"][index],
                 "launches_by_path": {path: counts[index] for path, counts in path_launches.items()},
                 **step_times}
+        # one float32 stage-2 step at 512px: the same rotation shapes, AdaIN at seven sites
+        item["train_step_512"] = times(phase_counts, sites=sites_512)[0]
         if any("site" in r for r, _ in picked):  # AdaIN: the route of each site and batch
             item["site_routes"] = {f"B{r['batch']} {r['site']}": r["route"] for r, _ in picked}
+            item["site_routes"].update({f"B{r['batch']} {r['dtype']} {r['site']}": r["route"]
+                                        for r in records if r["kernel"] == kernel
+                                        and r.get("site") == site(*ADAIN_SITE_512)})
             item["fine_tune_iteration"] = {dtype: times({(kernel, 1): 1}, dtype)[0]
                                            for dtype in ("float32", "bfloat16")}
+            item["fine_tune_iteration_512"] = {dtype: times({(kernel, 1): 1}, dtype, sites_512)[0]
+                                               for dtype in ("float32", "bfloat16")}
         else:  # rotation: the kernel route of each batch, and route v1 in turns
             item["kernel_route"] = {f"B{r['batch']}": r["route"] for r, _ in picked}
             item["v1_device_ms"] = sum(r["v1_device_ms"] * n for r, n in picked)
@@ -3098,7 +3523,11 @@ def main() -> int:
                "train_loop": {item["name"] for item in kernels},
                "demo": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
                "train_mesh": {item["name"] for item in kernels},
-               "serve_mesh": {"rotate_cuda", "adain_cuda"}}
+               "serve_mesh": {"rotate_cuda", "adain_cuda"},
+               "serve_512": {"rotate_cuda", "adain_cuda"},
+               "demo_512": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
+               "fine_tune_512": {"adain_cuda", "adain_backward_cuda"},
+               "train_512": {item["name"] for item in kernels}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -3113,7 +3542,7 @@ def main() -> int:
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
              "sampling": sampling, "evaluation": evaluation, "loops": loops, "demo": demo,
-             "mesh": mesh,
+             "mesh": mesh, "path_512": rec_512,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

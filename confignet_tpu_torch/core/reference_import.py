@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from confignet_tpu_torch.core import pickles
 from confignet_tpu_torch.core.resnet50_keras_order import RESNET50_KERAS_WEIGHT_NAMES
 
 Path = Tuple[str, ...]
@@ -182,6 +183,13 @@ def assign_weight_list(params: Dict[str, np.ndarray], weight_list: Sequence[np.n
                              f"{target_shape}")
         flat[key] = weight.astype(np.float32)
     return flat
+
+
+def load_reference_pickle(path: str):
+    """Load a pickle written by the TF reference, the JAX package or the
+    port (a release's face-model distributions, the HDRI model) through the
+    port's unpickler, which maps each package's classes onto the port's."""
+    return pickles.read_pickle(path)
 
 
 def _read_json(path: str) -> dict:

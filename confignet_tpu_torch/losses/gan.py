@@ -37,6 +37,33 @@ def eye_loss(gt_imgs: torch.Tensor, gen_imgs: torch.Tensor, eye_masks: torch.Ten
     return per_img.mean()
 
 
+# how far lead_autograd_sequence puts the calling thread's count ahead; the
+# lead is kept per process, as the engine's per-thread counts are
+_SEQUENCE_LEAD = 1 << 16
+_sequence_led = False
+
+
+def lead_autograd_sequence() -> None:
+    """Make the autograd engine take a train step's backward in one order
+    from a process's first step on.  The engine runs nodes that are ready
+    together in order of their sequence numbers, which each thread counts
+    for itself: a forward's nodes on the calling thread, the R1 penalty's
+    double-backward nodes (``create_graph``) on a CUDA device's thread,
+    whose count starts at zero in a new process.  In a process's first step
+    the two counts overlap and the D update's backward visits nodes in
+    another order than in every later step, so its float sums round
+    otherwise.  Putting the calling thread's count far ahead once, by
+    building and dropping nodes on the CPU, gives the first step the later
+    steps' order.  Train steps on a CUDA device call this when built."""
+    global _sequence_led
+    if _sequence_led:
+        return
+    x = torch.zeros((), requires_grad=True)
+    for _ in range(_SEQUENCE_LEAD):
+        x * 1.0
+    _sequence_led = True
+
+
 def r1_penalty(gradients: torch.Tensor) -> torch.Tensor:
     """R1 penalty: 10 * 0.5 * mean_b ||grad_b||^2 (losses.py:75-82)."""
     per_sample = gradients.square().reshape(gradients.shape[0], -1).sum(dim=1)

@@ -62,3 +62,7 @@ class PerceptualLoss(nn.Module):
         for a_p, a_d in zip(self.activations(predicted), self.activations(data)):
             total = total + (a_p.reshape(-1) - a_d.reshape(-1)).square().mean()
         return total
+
+    def loss(self, predicted: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+        """:meth:`loss_fn` on the module's own VGG weights."""
+        return self.loss_fn(predicted, data)

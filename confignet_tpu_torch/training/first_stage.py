@@ -62,7 +62,7 @@ from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.core.pickles import read_pickle, write_pickle
 from confignet_tpu_torch.losses.gan import (
     compute_discriminator_loss, compute_latent_discriminator_loss, eye_loss, gan_g_loss,
-    latent_regression_loss)
+    latent_regression_loss, lead_autograd_sequence)
 from confignet_tpu_torch.losses.perceptual import PerceptualLoss
 from confignet_tpu_torch.models.blocks import MLP
 from confignet_tpu_torch.models.discriminator import HologanDiscriminator, HologanLatentRegressor
@@ -271,6 +271,11 @@ class ConfigNetFirstStage:
     @property
     def facemodel_inputs_tuple(self) -> Tuple:
         return tuple((name, tuple(dims)) for name, dims in self.config["facemodel_inputs"].items())
+
+    @property
+    def facemodel_input_dim(self) -> int:
+        """Total face-model input dims (reference: confignet_first_stage.py:209-215)."""
+        return int(sum(v[0] for v in self.config["facemodel_inputs"].values()))
 
     # ------------------------------------------------------------------
     # Modules, parameters, optimizers
@@ -561,6 +566,8 @@ class ConfigNetFirstStage:
         image-D fakes, the latent-D reals and the generator player's losses
         (:meth:`_image_d_fakes`, :meth:`_latent_d_reals`,
         :meth:`_generator_losses`)."""
+        if self.device.type == "cuda":
+            lead_autograd_sequence()
         r1_heads = self.config.get("r1_heads", "all")
         n_d_updates, n_g_updates, multi, sub_batch = self._sub_update_plan()
 

@@ -33,7 +33,8 @@ from confignet_tpu_torch.core.logging_utils import LossFlusher, TensorBoardWrite
 from confignet_tpu_torch.core.model_io import (
     export_jax_params, load_jax_params, load_model_weights, npz_is_reference_format,
     save_model_weights)
-from confignet_tpu_torch.losses.gan import compute_latent_discriminator_loss, gan_g_loss
+from confignet_tpu_torch.losses.gan import (
+    compute_latent_discriminator_loss, gan_g_loss, lead_autograd_sequence)
 from confignet_tpu_torch.models.blocks import MLP
 from confignet_tpu_torch.training.state import ema_update, make_adam
 
@@ -68,26 +69,31 @@ class LatentGAN:
         if self.config["latent_dim"] is None:
             raise ValueError("LatentGAN config requires latent_dim")
         self.device = resolve_device(device)
-
-        latent_dim = self.config["latent_dim"]
-        hidden = int(latent_dim * self.config["hidden_layer_size_multiplier"])
-        self.generator = MLP(self.config["num_mlp_layers"], latent_dim, hidden, latent_dim)
-        self.discriminator = MLP(self.config["num_mlp_layers"], latent_dim, hidden, 1)
-        # seeded init on the CPU (the same weights on every device)
-        rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)))
-        initializers.initialize(self.generator, rng)
-        initializers.initialize(self.discriminator, rng)
-        self.generator_smoothed = copy.deepcopy(self.generator).requires_grad_(False)
-        for name in WEIGHT_TREES:
-            getattr(self, name).to(self.device).eval()
         self._draws = torch.Generator(device=self.device).manual_seed(int(self.config.get("seed", 0)))
-        self._make_optimizers()
         self.log_writer: Optional[TensorBoardWriter] = None
         self.inputs_for_logs: Optional[Dict[str, np.ndarray]] = None
         self.inputs_for_metrics: Optional[Dict[str, np.ndarray]] = None
         self.metrics: Dict[str, list] = {}
         self._inception_metric_object = None
         self._train_step_fn: Optional[Callable[[torch.Tensor], Losses]] = None
+
+        self.initialize_network()
+
+    def initialize_network(self) -> None:
+        """The generator and discriminator MLPs from the config's seed (on
+        the CPU, so every device gets the same weights), the EMA copy of the
+        generator and a fresh Adam per player."""
+        latent_dim = self.config["latent_dim"]
+        hidden = int(latent_dim * self.config["hidden_layer_size_multiplier"])
+        self.generator = MLP(self.config["num_mlp_layers"], latent_dim, hidden, latent_dim)
+        self.discriminator = MLP(self.config["num_mlp_layers"], latent_dim, hidden, 1)
+        rng = torch.Generator().manual_seed(int(self.config.get("seed", 0)))
+        initializers.initialize(self.generator, rng)
+        initializers.initialize(self.discriminator, rng)
+        self.generator_smoothed = copy.deepcopy(self.generator).requires_grad_(False)
+        for name in WEIGHT_TREES:
+            getattr(self, name).to(self.device).eval()
+        self._make_optimizers()
 
     def _make_optimizers(self) -> None:
         """A fresh Adam per player (``set_weights`` resets them, as the JAX
@@ -121,6 +127,8 @@ class LatentGAN:
         """``step(real_embeddings) -> {"d": ..., "g": ...}`` loss dicts
         (detached 0-d tensors on the device); updates G, D, their Adams and
         the EMA generator in place."""
+        if self.device.type == "cuda":
+            lead_autograd_sequence()
         batch_size = self.config["batch_size"]
 
         def step(real_embeddings: torch.Tensor) -> Losses:

@@ -112,6 +112,8 @@ ADAIN_SITES_256 = [(3, 512, 256), (3, 4096, 128), (3, 256, 256), (3, 1024, 64), 
                    (3, 16384, 32)]
 # the same sites at the one-shot fine-tune's batch of one photo
 ADAIN_SITES_256_B1 = [(1,) + site[1:] for site in ADAIN_SITES_256]
+# the 512px generator's seventh site (map_2d_2c) at the fine-tune's and the G step's batches
+ADAIN_SITE_512 = [(1, 65536, 16), (12, 65536, 16)]
 
 
 def adain_inputs(shape, dtype, device, seed):
@@ -146,7 +148,7 @@ def test_adain_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1)
+@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SITE_512)
 def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
     """The route adain_route picks and the two-pass route forced on the same
     shape; (2, 256, 256, 16) in float32 takes the two-pass route by itself."""
@@ -159,6 +161,8 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
         assert picked.route == "two_pass"
     if shape in ADAIN_SITES_256 + ADAIN_SITES_256_B1:
         assert picked.route == "one_pass"
+    if shape in ADAIN_SITE_512:
+        assert picked.route == "two_pass"
     want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
     for plan in (picked, adain_two_pass_plan(batch, positions, channels, dtype, sms)):
         got, stats = launch_forward(x, scale, bias, 1e-3, plan)
@@ -168,7 +172,7 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES)
+@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES + ADAIN_SITE_512)
 def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
     """The backward kernel on its own route and on the forced two-pass route
     against its plain version on the same saved statistics; two launches

@@ -124,3 +124,20 @@ def test_perceptual_loss_matches_jax():
     want16 = jloss.loss(jnp.asarray(a), jnp.asarray(b, jnp.bfloat16))
     assert got16.dtype == torch.float32
     _close(got16, want16, rtol=1e-3)
+
+
+def test_lead_autograd_sequence_puts_the_calling_thread_ahead_once():
+    """The lead advances the calling thread's autograd sequence count by at
+    least ``_SEQUENCE_LEAD`` nodes, once per process; a CUDA train step
+    calls it when built (losses/gan.py)."""
+    def next_sequence_nr():
+        return (torch.zeros((), requires_grad=True) * 1.0).grad_fn._sequence_nr()
+
+    led = gan._sequence_led
+    before = next_sequence_nr()
+    gan.lead_autograd_sequence()
+    after = next_sequence_nr()
+    assert after - before >= (1 if led else gan._SEQUENCE_LEAD)
+    assert gan._sequence_led
+    gan.lead_autograd_sequence()
+    assert next_sequence_nr() - after == 1

@@ -92,7 +92,7 @@ def _generator_pair(size, dtype=None):
     return jgen, jparams, tgen
 
 
-@pytest.mark.parametrize("size", [128, 256])
+@pytest.mark.parametrize("size", [128, 256, 512])
 def test_generator_matches_jax_f32(size):
     jgen, jparams, tgen = _generator_pair(size)
     z, rot = latents_and_poses(3, seed=size)

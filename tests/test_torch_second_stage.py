@@ -91,12 +91,15 @@ def _losses(groups):
     return {g: {k: float(v) for k, v in d.items()} for g, d in groups.items()}
 
 
-def stage2_step_results(port_overrides, jax_rotation=None):
+def stage2_step_results(port_overrides, jax_rotation=None, size=128, *more_port_overrides):
     """(JAX result, port result) of one stage-2 step from the same weights,
     batch and flips: {"losses", "moments", "ema"}.  ``jax_rotation``, where
-    given, replaces the JAX generator's rotation resample for the trace."""
-    dataset = FakeDataset(n_images=8, img_size=128)
-    jmodel = jax_second_stage.ConfigNet(dict(STAGE2_CONFIG))
+    given, replaces the JAX generator's rotation resample for the trace;
+    ``size`` is the images' side (the config's ``output_shape``).  Each of
+    ``more_port_overrides`` adds the result of one more port step."""
+    dataset = FakeDataset(n_images=8, img_size=size)
+    config = dict(STAGE2_CONFIG, output_shape=(size, size, 3))
+    jmodel = jax_second_stage.ConfigNet(dict(config))
     jmodel.set_weights(give_heads_weights(jmodel.get_weights()))
     weights = {name: _flat(tree) for name, tree in jmodel.get_weights().items()}
     vgg = jmodel.perceptual_loss.variables["params"]
@@ -123,16 +126,18 @@ def stage2_step_results(port_overrides, jax_rotation=None):
     jax_result = dict(losses=_losses(jlosses), moments=jax_moments,
                       ema=_flat(state.generator_smoothed))
 
-    model = ConfigNet(dict(STAGE2_CONFIG, **port_overrides), device="cpu")
-    model.set_weights(weights)
-    load_jax_params(model.perceptual_loss.vgg, _flat(vgg))
-    load_jax_params(model.perceptual_loss_face_reco.vgg, _flat(vggface))
-    model._flip_mask = _feeder(FLIPS, torch.from_numpy)
-    losses = model._build_train_step()(batch)
-    assert not model._flip_mask.remaining
-    port_result = dict(losses=_losses(losses), moments=model.first_moments(),
-                       ema=model.get_weights()["generator_smoothed"])
-    return jax_result, port_result
+    port_results = []
+    for overrides in (port_overrides,) + more_port_overrides:
+        model = ConfigNet(dict(config, **overrides), device="cpu")
+        model.set_weights(weights)
+        load_jax_params(model.perceptual_loss.vgg, _flat(vgg))
+        load_jax_params(model.perceptual_loss_face_reco.vgg, _flat(vggface))
+        model._flip_mask = _feeder(FLIPS, torch.from_numpy)
+        losses = model._build_train_step()(batch)
+        assert not model._flip_mask.remaining
+        port_results.append(dict(losses=_losses(losses), moments=model.first_moments(),
+                                 ema=model.get_weights()["generator_smoothed"]))
+    return (jax_result, *port_results)
 
 
 def check_losses(jax_result, port_result):
