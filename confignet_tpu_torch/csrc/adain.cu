@@ -34,22 +34,39 @@
 // (forward); x and g read once, dx written once (backward).
 //
 // Route 2, two passes (adain_fwd_partials + adain_fwd_apply,
-// adain_bwd_partials + adain_bwd_apply), for slabs that a cluster cannot
-// hold (the 512px site 256^2 x 16 in float32).  The positions are cut into
-// chunks across ordinary blocks; the first kernel writes per-chunk partials
-// to a float32 scratch, the second merges them in chunk order and writes
-// the chunk.  It reads x (and g) twice: at best two thirds of the bound.
+// adain_bwd_partials + adain_bwd_apply), for slabs larger than the card's
+// shared memory.  The positions are cut into chunks across ordinary blocks;
+// the first kernel writes per-chunk partials to a float32 scratch, the
+// second merges them in chunk order and writes the chunk.  It reads x (and g) twice: at best two thirds of the bound.
 // The forward's per-thread statistics are sums shifted by the thread's first
 // value (one division per thread, not per element).
 //
-// Both routes use the same thread layout: 256 threads, each owning `vec`
+// Route 3, one pass over co-resident blocks (adain_fwd_resident,
+// adain_bwd_resident), for slabs that no cluster holds but the card's SMs
+// do (the 512px site 256^2 x 16: 4 MB a sample in float32, 2 MB in
+// bfloat16).  One sample's (P, group) slab is cut over `parts` ordinary
+// blocks of up to the whole opt-in shared memory, one block per SM; the
+// grid is launched cooperatively, so every block is resident and a block
+// may wait for the others.  The blocks walk the (sample, group) work items
+// persistently, `wave` items at a time.  Each block copies its rows into
+// shared memory once, in four cp.async stages, and sums each stage as it
+// lands (the forward's sums shifted by the thread's first value, one
+// division per thread).  It writes its partials to a float32 scratch
+// (B, parts, 2, C), raises the item's arrival counter with release
+// semantics and waits with acquire loads until all `parts` have arrived
+// (counters zeroed by the wrapper on every call).  Every block then merges
+// the parts' partials in part order with the cluster route's formula, so
+// every block, and every run, gets the same bits, without float atomics,
+// and writes its resident rows once: the bound's traffic again.
+//
+// All routes use the same thread layout: 256 threads, each owning `vec`
 // neighbouring channels (16 bytes, or 1 channel where C does not allow
 // that) of the group and every lanes-th row; per-channel sums over the rows
 // of a block are a tree over the lanes in shared memory, in a fixed order.
-// Which route and which (group, parts) a shape takes is decided in Python
-// (ops/adain_cuda.py adain_route) from the shape, the dtype, the card's
-// shared memory per block and its SM count; shared_bytes() here repeats
-// its arithmetic for the shared memory size.
+// Which route and which (group, parts, wave) a shape takes is decided in
+// Python (ops/adain_cuda.py adain_route) from the shape, the dtype, the
+// card's shared memory per block and its SM count;
+// shared_bytes() here repeats its arithmetic for the shared memory size.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -675,22 +692,379 @@ adain_bwd_apply(const T* __restrict__ x, const T* __restrict__ g, const float* _
 }
 
 // ---------------------------------------------------------------------------
+// Route 3: one pass over co-resident blocks.  grid (wave * parts), launched
+// cooperatively; block -> (slot = blockIdx.x / parts, part k = blockIdx.x %
+// parts), and slot s takes the work items (sample, group) s, s + wave, ...
+// partial (B, parts, 2, C) float32; arrived (B * groups) uint32, zero at
+// launch.  Shared memory: tiles (per x 16-byte-aligned rows * group of T),
+// then red (lanes * group floats), merged (3 * group floats) and gathered
+// (parts * 2 * group floats).  A thread reads back only the rows it copied,
+// and a part has the same rows in every item, so while a thread writes out
+// one item's rows it copies the next item's into the same places.
+// ---------------------------------------------------------------------------
+
+// Publish this block's partials of one item (stored before the call) and
+// wait until all `parts` blocks of the item have published theirs.
+__device__ __forceinline__ void arrive_and_wait(unsigned* arrived, int parts) {
+  __syncthreads();  // every thread's partial stores precede the release
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(arrived) : "memory");
+    unsigned seen = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(arrived) : "memory");
+    } while (seen < static_cast<unsigned>(parts));
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Copy every part's (2, group) partials of sample b, channels c0 .., into
+// gathered (parts, 2, group), through L2: one round trip for all parts.
+__device__ __forceinline__ void gather_partials(const float* partial, float* gathered, int b,
+                                                int parts, int C, int c0, int group) {
+  const int n = parts * 2 * group;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int kk = i / (2 * group), s = (i / group) % 2, j = i % group;
+    gathered[i] = c0 + j < C ? __ldcg(partial + ((size_t)(b * parts + kk) * 2 + s) * C + c0 + j)
+                             : 0.f;
+  }
+  __syncthreads();
+}
+
+// Sum one of the gathered partials (sel 0 or 1) of channel m.col over the
+// parts in a fixed order: lane l takes parts l, l + lanes, ... and the
+// lanes are summed as a tree (lane_sum); every thread then reads the
+// totals from red[0 .. group).  m is the one-channel layout Layout(group, 1).
+__device__ __forceinline__ void sum_parts(const Layout& m, int group, int parts, int sel,
+                                          const float* gathered, float* red) {
+  float v[1] = {0.f};
+  if (m.active) {
+    for (int kk = m.lane; kk < parts; kk += m.lanes) v[0] += gathered[(kk * 2 + sel) * group + m.col];
+  }
+  lane_sum<1>(m, group, red, v);
+}
+
+// Rows per copy stage: a multiple of lanes, kStages stages cover `rows`.
+__device__ __forceinline__ int stage_rows_for(int rows, int lanes) {
+  return ((rows + kStages - 1) / kStages + lanes - 1) / lanes * lanes;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+adain_fwd_resident(const T* __restrict__ x, const void* __restrict__ scale,
+                   const void* __restrict__ bias, T* __restrict__ out, float* __restrict__ stats,
+                   float* __restrict__ partial, unsigned* __restrict__ arrived, int B, int P, int C,
+                   int group, int parts, long long scale_stride, long long bias_stride,
+                   int scale_dtype, int bias_dtype, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout t(group, VEC);
+  const Layout m(group, 1);
+  const int groups = (C + group - 1) / group, items = B * groups;
+  const int wave = gridDim.x / parts, slot = blockIdx.x / parts, k = blockIdx.x % parts;
+  const int per = (P + parts - 1) / parts;
+  const int row0 = k * per;
+  const int rows = part_rows(P, per, k);
+  const int stage_rows = stage_rows_for(rows, t.lanes);
+  T* tile = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + align16((size_t)per * group * sizeof(T)));
+  float* merged = red + t.lanes * group;  // (mean, gain, shift) per channel
+  float* gathered = merged + 3 * group;   // (parts, sum / M2, group)
+  auto source = [&](int item) {
+    return x + ((size_t)(item / groups) * P + row0) * C;
+  };
+  auto live_in = [&](int item) { return t.active && (item % groups) * group + t.col * VEC < C; };
+
+  if (slot < items) {  // the first item's rows, in kStages committed groups
+    const int c = (slot % groups) * group + t.col * VEC;
+    const bool live = live_in(slot);
+    for (int st = 0; st < kStages; ++st) {
+      if (live) {
+        const int end = min(rows, (st + 1) * stage_rows);
+        for (int r = st * stage_rows + t.lane; r < end; r += t.lanes)
+          copy_pack<T, VEC>(tile + (size_t)r * group + t.col * VEC, source(slot) + (size_t)r * C + c);
+      }
+      commit_stage();
+    }
+  }
+  for (int item = slot; item < items; item += wave) {
+    const int b = item / groups, c0 = (item % groups) * group;
+    const int c = c0 + t.col * VEC;
+    const bool live = live_in(item);
+    __syncthreads();  // the previous item is done with red, merged and gathered
+    // the thread's sums shifted by its first value, each stage as it lands
+    float shift[VEC] = {}, s1[VEC] = {}, s2[VEC] = {};
+    int n = 0;
+    for (int st = 0; st < kStages; ++st) {
+      wait_stage(st);
+      if (!live) continue;
+      const int end = min(rows, (st + 1) * stage_rows);
+      for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+        float v[VEC];
+        load_f32<T, VEC>(tile + (size_t)r * group + t.col * VEC, v);
+        if (n == 0) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) shift[i] = v[i];
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = v[i] - shift[i];
+          s1[i] += d;
+          s2[i] += d * d;
+        }
+        ++n;
+      }
+    }
+    // the block's (sum, M2), as adain_fwd_partials takes a chunk's
+    float sum[VEC], m2[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sum[i] = n * shift[i] + s1[i];
+      m2[i] = n > 0 ? s2[i] - s1[i] * s1[i] / n : 0.f;
+    }
+    lane_sum<VEC>(t, group, red, sum);
+    float block_mean[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) block_mean[i] = rows > 0 ? red[t.col * VEC + i] / rows : 0.f;
+    float* mine = partial + ((size_t)b * parts + k) * 2 * C;
+    if (live && t.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) mine[c + i] = red[t.col * VEC + i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float d = n > 0 ? sum[i] / n - block_mean[i] : 0.f;
+      m2[i] += n * d * d;
+    }
+    lane_sum<VEC>(t, group, red, m2);
+    if (live && t.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) mine[C + c + i] = red[t.col * VEC + i];
+    }
+    arrive_and_wait(arrived + item, parts);
+    gather_partials(partial, gathered, b, parts, C, c0, group);
+
+    // merge the parts in a fixed order (the cluster route's formula): the
+    // mean from the sums, then M2 = sum_k (M2_k + n_k (mean_k - mean)^2);
+    // every block of the item gets the same bits
+    sum_parts(m, group, parts, 0, gathered, red);
+    const float mean_j = red[m.col] / P;
+    __syncthreads();
+    float v[1] = {0.f};
+    if (m.active) {
+      for (int kk = m.lane; kk < parts; kk += m.lanes) {
+        const int nk = part_rows(P, per, kk);
+        if (nk == 0) continue;
+        const float d = gathered[kk * 2 * group + m.col] / nk - mean_j;
+        v[0] += gathered[(kk * 2 + 1) * group + m.col] + nk * d * d;
+      }
+    }
+    lane_sum<1>(m, group, red, v);
+    const int j = threadIdx.x;
+    if (j < group && c0 + j < C) {
+      const float rstd = rsqrtf(red[j] / P + eps);
+      merged[j] = mean_j;  // thread j < group has m.col == j
+      merged[group + j] = rstd * (load_param(scale, scale_dtype, b * scale_stride + c0 + j) + 1.f);
+      merged[2 * group + j] = load_param(bias, bias_dtype, b * bias_stride + c0 + j);
+      if (k == 0) {
+        stats[(size_t)b * 2 * C + c0 + j] = mean_j;
+        stats[(size_t)b * 2 * C + C + c0 + j] = rstd;
+      }
+    }
+    __syncthreads();
+
+    // write this item's rows; behind each, copy the next item's row in
+    const int next = item + wave;
+    const bool live_next = next < items && live_in(next);
+    const T* next_src = source(next < items ? next : item);
+    const int c_next = (next % groups) * group + t.col * VEC;
+    float mean[VEC], gain[VEC], bshift[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean[i] = merged[t.col * VEC + i];
+      gain[i] = merged[group + t.col * VEC + i];
+      bshift[i] = merged[2 * group + t.col * VEC + i];
+    }
+    T* ob = out + ((size_t)b * P + row0) * C;
+    for (int st = 0; st < kStages; ++st) {
+      const int end = min(rows, (st + 1) * stage_rows);
+      for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+        T* row = tile + (size_t)r * group + t.col * VEC;
+        if (live) {
+          float w[VEC];
+          load_f32<T, VEC>(row, w);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) w[i] = (w[i] - mean[i]) * gain[i] + bshift[i];
+          store_from_f32<T, VEC>(ob + (size_t)r * C + c, w);  // issued after the row is read
+        }
+        if (live_next) copy_pack<T, VEC>(row, next_src + (size_t)r * C + c_next);
+      }
+      commit_stage();
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+adain_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ stats, const void* __restrict__ scale,
+                   T* __restrict__ dx, void* __restrict__ dscale, void* __restrict__ dbias,
+                   float* __restrict__ partial, unsigned* __restrict__ arrived, int B, int P, int C,
+                   int group, int parts, long long scale_stride, int scale_dtype,
+                   int dscale_dtype, int dbias_dtype) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout t(group, VEC);
+  const Layout m(group, 1);
+  const int groups = (C + group - 1) / group, items = B * groups;
+  const int wave = gridDim.x / parts, slot = blockIdx.x / parts, k = blockIdx.x % parts;
+  const int per = (P + parts - 1) / parts;
+  const int row0 = k * per;
+  const int rows = part_rows(P, per, k);
+  const int stage_rows = stage_rows_for(rows, t.lanes);
+  const size_t tile_bytes = align16((size_t)per * group * sizeof(T));
+  T* xt = reinterpret_cast<T*>(smem);
+  T* gt = reinterpret_cast<T*>(smem + tile_bytes);
+  float* red = reinterpret_cast<float*>(smem + 2 * tile_bytes);
+  float* merged = red + t.lanes * group;  // (k1, a, bcoef) per channel
+  float* gathered = merged + 3 * group;   // (parts, sum g / sum g * xhat, group)
+  auto offset = [&](int item) { return ((size_t)(item / groups) * P + row0) * C; };
+  auto live_in = [&](int item) { return t.active && (item % groups) * group + t.col * VEC < C; };
+
+  if (slot < items) {
+    const int c = (slot % groups) * group + t.col * VEC;
+    const bool live = live_in(slot);
+    for (int st = 0; st < kStages; ++st) {
+      if (live) {
+        const int end = min(rows, (st + 1) * stage_rows);
+        for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+          const size_t s = (size_t)r * group + t.col * VEC, gidx = offset(slot) + (size_t)r * C + c;
+          copy_pack<T, VEC>(xt + s, x + gidx);
+          copy_pack<T, VEC>(gt + s, g + gidx);
+        }
+      }
+      commit_stage();
+    }
+  }
+  for (int item = slot; item < items; item += wave) {
+    const int b = item / groups, c0 = (item % groups) * group;
+    const int c = c0 + t.col * VEC;
+    const bool live = live_in(item);
+    const size_t base = offset(item);
+    __syncthreads();  // the previous item is done with red, merged and gathered
+    float mean[VEC] = {}, rstd[VEC] = {}, sg[VEC] = {}, sgx[VEC] = {};
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        mean[i] = stats[(size_t)b * 2 * C + c + i];
+        rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
+      }
+    }
+    for (int st = 0; st < kStages; ++st) {
+      wait_stage(st);
+      if (!live) continue;
+      const int end = min(rows, (st + 1) * stage_rows);
+      for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+        float xv[VEC], gv[VEC];
+        load_f32<T, VEC>(xt + (size_t)r * group + t.col * VEC, xv);
+        load_f32<T, VEC>(gt + (size_t)r * group + t.col * VEC, gv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          sg[i] += gv[i];
+          sgx[i] += gv[i] * ((xv[i] - mean[i]) * rstd[i]);
+        }
+      }
+    }
+    float* mine = partial + ((size_t)b * parts + k) * 2 * C;
+    lane_sum<VEC>(t, group, red, sg);
+    if (live && t.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) mine[c + i] = red[t.col * VEC + i];
+    }
+    __syncthreads();
+    lane_sum<VEC>(t, group, red, sgx);
+    if (live && t.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) mine[C + c + i] = red[t.col * VEC + i];
+    }
+    arrive_and_wait(arrived + item, parts);
+    gather_partials(partial, gathered, b, parts, C, c0, group);
+
+    // sum the parts in a fixed order: every block of the item gets the same bits
+    sum_parts(m, group, parts, 0, gathered, red);
+    const float db = red[m.col];
+    __syncthreads();
+    sum_parts(m, group, parts, 1, gathered, red);
+    const int j = threadIdx.x;
+    if (j < group && c0 + j < C) {
+      const float ds = red[j];
+      const float rstd_j = stats[(size_t)b * 2 * C + C + c0 + j];
+      merged[j] = rstd_j * (load_param(scale, scale_dtype, b * scale_stride + c0 + j) + 1.f);
+      merged[group + j] = db / P;  // thread j < group has m.col == j
+      merged[2 * group + j] = ds / P;
+      if (k == 0) {
+        store_param(dbias, dbias_dtype, (size_t)b * C + c0 + j, db);
+        store_param(dscale, dscale_dtype, (size_t)b * C + c0 + j, ds);
+      }
+    }
+    __syncthreads();
+
+    // write this item's rows; behind each, copy the next item's row in
+    const int next = item + wave;
+    const bool live_next = next < items && live_in(next);
+    const size_t next_base = offset(next < items ? next : item);
+    const int c_next = (next % groups) * group + t.col * VEC;
+    float k1[VEC], a[VEC], bcoef[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      k1[i] = merged[t.col * VEC + i];
+      a[i] = merged[group + t.col * VEC + i];
+      bcoef[i] = merged[2 * group + t.col * VEC + i];
+    }
+    for (int st = 0; st < kStages; ++st) {
+      const int end = min(rows, (st + 1) * stage_rows);
+      for (int r = st * stage_rows + t.lane; r < end; r += t.lanes) {
+        const size_t s = (size_t)r * group + t.col * VEC;
+        if (live) {
+          float xv[VEC], gv[VEC];
+          load_f32<T, VEC>(xt + s, xv);
+          load_f32<T, VEC>(gt + s, gv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            gv[i] = k1[i] * (gv[i] - a[i] - (xv[i] - mean[i]) * rstd[i] * bcoef[i]);
+          store_from_f32<T, VEC>(dx + base + (size_t)r * C + c, gv);  // after both rows are read
+        }
+        if (live_next) {
+          const size_t gidx = next_base + (size_t)r * C + c_next;
+          copy_pack<T, VEC>(xt + s, x + gidx);
+          copy_pack<T, VEC>(gt + s, g + gidx);
+        }
+      }
+      commit_stage();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-enum Route : int { kOnePass = 0, kTwoPass = 1 };
+enum Route : int { kOnePass = 0, kTwoPass = 1, kResident = 2 };
 
 // Dynamic shared memory of a launch (ops/adain_cuda.py _shared_bytes repeats it).
 size_t shared_bytes(int route, int tensors, int P, int group, int vec, int parts, int elem) {
   const size_t red = (size_t)lanes_for(group, vec) * group * sizeof(float);
   if (route == kTwoPass) return red;
   const int per = (P + parts - 1) / parts;
-  return tensors * align16((size_t)per * group * elem) + red + 5 * group * sizeof(float);
+  const size_t tiles = tensors * align16((size_t)per * group * elem) + red;
+  if (route == kResident) return tiles + (3 + 2 * (size_t)parts) * group * sizeof(float);
+  return tiles + 5 * group * sizeof(float);
 }
 
-// Opt in once per device to the largest dynamic shared memory and to
-// 16-block clusters for a kernel (one flag array per kernel instantiation).
-template <auto kernel>
+// Opt in once per device to the largest dynamic shared memory for a kernel
+// and, for a cluster kernel, to 16-block clusters (one flag array per
+// kernel instantiation).
+template <auto kernel, bool kCluster>
 cudaError_t prepare() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -701,7 +1075,7 @@ cudaError_t prepare() {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && kCluster)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
@@ -709,7 +1083,7 @@ cudaError_t prepare() {
 
 template <auto kernel, typename... Args>
 cudaError_t launch_cluster(dim3 grid, int cluster, size_t smem, cudaStream_t s, Args... args) {
-  cudaError_t err = prepare<kernel>();
+  cudaError_t err = prepare<kernel, true>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -726,13 +1100,34 @@ cudaError_t launch_cluster(dim3 grid, int cluster, size_t smem, cudaStream_t s, 
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// A cooperative launch: refused (cudaErrorCooperativeLaunchTooLarge) unless
+// every block of the grid can be resident at once, so a block may wait for
+// the others without deadlock.
+template <auto kernel, typename... Args>
+cudaError_t launch_cooperative(int blocks, size_t smem, cudaStream_t s, Args... args) {
+  cudaError_t err = prepare<kernel, false>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 struct Shape {
-  int B, P, C, route, group, vec, parts;
+  int B, P, C, route, group, vec, parts, wave;
   bool valid(int elem) const {
     if (B < 1 || P < 1 || C < 1 || group < 1 || parts < 1 || B > 65535) return false;
     if (vec != 1 && vec != 16 / elem) return false;
     if (group % vec || C % vec) return false;
     if (route == kOnePass) return parts <= 16;
+    if (route == kResident) return wave >= 1 && (long long)wave * parts <= 65535;
     return route == kTwoPass && parts <= P && parts <= 65535;
   }
   int groups() const { return (C + group - 1) / group; }
@@ -741,14 +1136,20 @@ struct Shape {
 
 template <typename T, int VEC>
 cudaError_t run_forward(const Shape& sh, const void* x, const void* scale, const void* bias, void* out,
-                    float* stats, float* partial, long long scale_stride, long long bias_stride,
-                    int scale_dtype, int bias_dtype, float eps, cudaStream_t s) {
+                    float* stats, float* partial, unsigned* arrived, long long scale_stride,
+                    long long bias_stride, int scale_dtype, int bias_dtype, float eps,
+                    cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   const size_t smem = shared_bytes(sh.route, 1, sh.P, sh.group, VEC, sh.parts, sizeof(T));
   if (sh.route == kOnePass) {
     return launch_cluster<adain_fwd_cluster<T, VEC>>(
         dim3(sh.parts * sh.groups(), sh.B), sh.parts, smem, s, xt, scale, bias, ot, stats, sh.P,
+        sh.C, sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
+  }
+  if (sh.route == kResident) {
+    return launch_cooperative<adain_fwd_resident<T, VEC>>(
+        sh.wave * sh.parts, smem, s, xt, scale, bias, ot, stats, partial, arrived, sh.B, sh.P,
         sh.C, sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
   }
   const dim3 grid(sh.groups(), sh.parts, sh.B);
@@ -763,8 +1164,8 @@ cudaError_t run_forward(const Shape& sh, const void* x, const void* scale, const
 template <typename T, int VEC>
 cudaError_t run_backward(const Shape& sh, const void* x, const void* g, const float* stats,
                      const void* scale, void* dx, void* dscale, void* dbias, float* partial,
-                     long long scale_stride, int scale_dtype, int dscale_dtype, int dbias_dtype,
-                     cudaStream_t s) {
+                     unsigned* arrived, long long scale_stride, int scale_dtype, int dscale_dtype,
+                     int dbias_dtype, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   T* dxt = static_cast<T*>(dx);
@@ -773,6 +1174,12 @@ cudaError_t run_backward(const Shape& sh, const void* x, const void* g, const fl
     return launch_cluster<adain_bwd_cluster<T, VEC>>(
         dim3(sh.parts * sh.groups(), sh.B), sh.parts, smem, s, xt, gt, stats, scale, dxt, dscale,
         dbias, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype,
+        dbias_dtype);
+  }
+  if (sh.route == kResident) {
+    return launch_cooperative<adain_bwd_resident<T, VEC>>(
+        sh.wave * sh.parts, smem, s, xt, gt, stats, scale, dxt, dscale, dbias, partial, arrived,
+        sh.B, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype,
         dbias_dtype);
   }
   const dim3 grid(sh.groups(), sh.parts, sh.B);
@@ -799,27 +1206,30 @@ extern "C" int adain_device_limits(int device, int* sms, int* smem_per_block) {
 // channel stride and the given row strides; stats: (B, 2, C) float32
 // (mean, rstd), written.  route 0: one pass, `parts` blocks per cluster
 // (<= 16); route 1: two passes over `parts` chunks of positions, partial
-// (B, parts, 2, C) float32 scratch.  Returns the launch's cudaError_t.
+// (B, parts, 2, C) float32 scratch; route 2: one pass over `parts`
+// co-resident blocks per (sample, group), `wave` of them at a time, partial
+// as for route 1 and arrived (B * groups) uint32 counters, zero.  Returns
+// the launch's cudaError_t.
 extern "C" int adain_forward(const void* x, const void* scale, const void* bias, void* out,
-                             float* stats, float* partial, int B, int P, int C, int route,
-                             int group, int vec, int parts, long long scale_stride,
-                             long long bias_stride, int x_dtype, int scale_dtype, int bias_dtype,
-                             float eps, void* stream) {
-  const Shape sh{B, P, C, route, group, vec, parts};
+                             float* stats, float* partial, unsigned* arrived, int B, int P, int C,
+                             int route, int group, int vec, int parts, int wave,
+                             long long scale_stride, long long bias_stride, int x_dtype,
+                             int scale_dtype, int bias_dtype, float eps, void* stream) {
+  const Shape sh{B, P, C, route, group, vec, parts, wave};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == kBFloat16 && sh.valid(2)) {
-    err = vec == 1 ? run_forward<__nv_bfloat16, 1>(sh, x, scale, bias, out, stats, partial,
+    err = vec == 1 ? run_forward<__nv_bfloat16, 1>(sh, x, scale, bias, out, stats, partial, arrived,
                                                scale_stride, bias_stride, scale_dtype, bias_dtype,
                                                eps, s)
-                   : run_forward<__nv_bfloat16, 8>(sh, x, scale, bias, out, stats, partial,
+                   : run_forward<__nv_bfloat16, 8>(sh, x, scale, bias, out, stats, partial, arrived,
                                                scale_stride, bias_stride, scale_dtype, bias_dtype,
                                                eps, s);
   } else if (x_dtype == kFloat32 && sh.valid(4)) {
-    err = vec == 1 ? run_forward<float, 1>(sh, x, scale, bias, out, stats, partial, scale_stride,
-                                       bias_stride, scale_dtype, bias_dtype, eps, s)
-                   : run_forward<float, 4>(sh, x, scale, bias, out, stats, partial, scale_stride,
-                                       bias_stride, scale_dtype, bias_dtype, eps, s);
+    err = vec == 1 ? run_forward<float, 1>(sh, x, scale, bias, out, stats, partial, arrived,
+                                       scale_stride, bias_stride, scale_dtype, bias_dtype, eps, s)
+                   : run_forward<float, 4>(sh, x, scale, bias, out, stats, partial, arrived,
+                                       scale_stride, bias_stride, scale_dtype, bias_dtype, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -828,28 +1238,30 @@ extern "C" int adain_forward(const void* x, const void* scale, const void* bias,
 
 // x/g/dx: (B, P, C) contiguous in x's dtype; stats: the forward's (B, 2, C)
 // float32; scale: (B, C), unit channel stride, row stride given; dscale,
-// dbias: (B, C) contiguous, written in their dtype codes.  route, parts and
-// partial as for adain_forward.
+// dbias: (B, C) contiguous, written in their dtype codes.  route, parts,
+// wave, partial and arrived as for adain_forward.
 extern "C" int adain_backward(const void* x, const void* g, const float* stats, const void* scale,
-                              void* dx, void* dscale, void* dbias, float* partial, int B, int P,
-                              int C, int route, int group, int vec, int parts,
-                              long long scale_stride, int x_dtype, int scale_dtype,
-                              int dscale_dtype, int dbias_dtype, void* stream) {
-  const Shape sh{B, P, C, route, group, vec, parts};
+                              void* dx, void* dscale, void* dbias, float* partial,
+                              unsigned* arrived, int B, int P, int C, int route, int group,
+                              int vec, int parts, int wave, long long scale_stride, int x_dtype,
+                              int scale_dtype, int dscale_dtype, int dbias_dtype, void* stream) {
+  const Shape sh{B, P, C, route, group, vec, parts, wave};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == kBFloat16 && sh.valid(2)) {
     err = vec == 1 ? run_backward<__nv_bfloat16, 1>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
-                                                scale_stride, scale_dtype, dscale_dtype,
+                                                arrived, scale_stride, scale_dtype, dscale_dtype,
                                                 dbias_dtype, s)
                    : run_backward<__nv_bfloat16, 8>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
-                                                scale_stride, scale_dtype, dscale_dtype,
+                                                arrived, scale_stride, scale_dtype, dscale_dtype,
                                                 dbias_dtype, s);
   } else if (x_dtype == kFloat32 && sh.valid(4)) {
     err = vec == 1 ? run_backward<float, 1>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
-                                        scale_stride, scale_dtype, dscale_dtype, dbias_dtype, s)
+                                        arrived, scale_stride, scale_dtype, dscale_dtype,
+                                        dbias_dtype, s)
                    : run_backward<float, 4>(sh, x, g, stats, scale, dx, dscale, dbias, partial,
-                                        scale_stride, scale_dtype, dscale_dtype, dbias_dtype, s);
+                                        arrived, scale_stride, scale_dtype, dscale_dtype,
+                                        dbias_dtype, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

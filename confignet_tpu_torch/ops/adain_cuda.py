@@ -16,7 +16,8 @@ each cotangent in its own primal's dtype.
   versions, :func:`fused_adain_plain_with_stats` and
   :func:`fused_adain_backward_plain`.
 - :func:`adain_route` decides, from the shape, the dtype and the card, whether
-  a call takes the one-pass cluster route or the two-pass route.
+  a call takes the one-pass cluster route, the one-pass route over
+  co-resident blocks (:func:`adain_resident_plan`) or the two-pass route.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -32,7 +33,7 @@ from torch.autograd.function import once_differentiable
 from confignet_tpu_torch.ops import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTE_CODES = {"one_pass": 0, "two_pass": 1}
+_ROUTE_CODES = {"one_pass": 0, "two_pass": 1, "resident": 2}
 _THREADS = 256  # kThreads in csrc/adain.cu
 _MAX_CLUSTER = 16  # non-portable cluster size, opted into by the kernel
 _PORTABLE_CLUSTER = 8
@@ -45,15 +46,18 @@ _BLOCKS_PER_SM = 16  # two-pass route: enough chunks to fill every SM several ti
 class AdainPlan(NamedTuple):
     """How one call is launched.  ``route`` "one_pass": clusters of
     ``parts`` blocks hold each (positions, group) slab in shared memory;
-    "two_pass": ``parts`` chunks of positions, a partials kernel and an
-    apply kernel.  ``group`` channels per block, ``vec`` channels per
-    16-byte access (1: scalar), ``shared_bytes`` dynamic shared memory per
-    block."""
+    "resident": ``parts`` co-resident ordinary blocks hold each slab, and
+    ``wave`` (sample, group) slabs are in flight at once (a cooperative grid
+    of ``wave * parts`` blocks); "two_pass": ``parts`` chunks of positions,
+    a partials kernel and an apply kernel.  ``group`` channels per block,
+    ``vec`` channels per 16-byte access (1: scalar), ``shared_bytes``
+    dynamic shared memory per block."""
     route: str
     group: int
     vec: int
     parts: int
     shared_bytes: int
+    wave: int = 0
 
 
 def _lanes(group: int, vec: int) -> int:
@@ -71,7 +75,10 @@ def _shared_bytes(route: str, tensors: int, positions: int, group: int, vec: int
     if route == "two_pass":
         return red
     per = math.ceil(positions / parts)
-    return tensors * (-(-per * group * elem // 16) * 16) + red + 5 * group * 4
+    tiles = tensors * (-(-per * group * elem // 16) * 16) + red
+    if route == "resident":  # merged (3 x group) and every part's partials (parts x 2 x group)
+        return tiles + (3 + 2 * parts) * group * 4
+    return tiles + 5 * group * 4
 
 
 def _group_widths(channels: int, vec: int, elem: int):
@@ -99,12 +106,46 @@ def adain_two_pass_plan(batch: int, positions: int, channels: int, dtype: torch.
                      _shared_bytes("two_pass", 1, positions, group, vec, chunks, elem))
 
 
+def adain_resident_plan(batch: int, positions: int, channels: int, dtype: torch.dtype,
+                        shared_per_block: int, sms: int,
+                        backward: bool = False) -> Optional[AdainPlan]:
+    """The co-resident route's launch, or None where one (positions, group)
+    slab of x (and g, ``backward``) does not fit the card's SMs at one block
+    of at most ``shared_per_block`` bytes each.
+
+    One block per SM: a block that fits the opt-in shared memory is always
+    resident alone (``__launch_bounds__(256, 1)``), whatever its registers.
+    The fewest parts whose rows fit a block set the most slabs in flight at
+    once (SMs over parts); the work items (sample, group) go in the fewest
+    waves of that many, the waves as even as whole items allow, and the
+    parts then grow until the wave covers every SM (smaller blocks, the
+    same waves)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem if channels % (16 // elem) == 0 else 1
+    group = next(_group_widths(channels, vec, elem))
+    tensors = 2 if backward else 1
+
+    def shared(parts):
+        return _shared_bytes("resident", tensors, positions, group, vec, parts, elem)
+
+    parts = max(1, math.ceil(tensors * positions * group * elem / shared_per_block))
+    while parts <= min(sms, positions) and shared(parts) > shared_per_block:
+        parts += 1
+    if parts > sms or shared(parts) > shared_per_block:
+        return None
+    most = sms // parts
+    items = batch * math.ceil(channels / group)
+    wave = math.ceil(items / math.ceil(items / most))
+    parts = min(max(parts, sms // wave), positions)
+    return AdainPlan("resident", group, vec, parts, shared(parts), wave)
+
+
 @functools.lru_cache(maxsize=1024)
 def adain_route(batch: int, positions: int, channels: int, dtype: torch.dtype,
                 shared_per_block: int, sms: int, backward: bool = False) -> AdainPlan:
     """The launch of one AdaIN call on a card with ``shared_per_block``
-    bytes of opt-in shared memory per block (and ``sms`` SMs, for the
-    two-pass route): a pure function of the shape and the card, the same
+    bytes of opt-in shared memory per block and ``sms`` SMs
+    (``device_limits``): a pure function of the shape and the card, the same
     for every call.
 
     One pass where a cluster of at most 16 blocks can hold the (positions,
@@ -113,9 +154,11 @@ def adain_route(batch: int, positions: int, channels: int, dtype: torch.dtype,
     at most a third of the limit (three blocks per SM), or, where no group
     allows that, the fewest blocks that fit at all.  A 16-block cluster must
     leave room for two blocks per SM (it has to fit the SMs of one GPC).
-    Otherwise two passes.  Fewer blocks per cluster beat more, smaller ones:
-    each cluster waits for its slowest block before it writes.  Cached: the
-    wrappers call it on every launch."""
+    Otherwise one pass over co-resident blocks (:func:`adain_resident_plan`)
+    where the card's SMs hold at least one slab at a block each, and two
+    passes where they do not.  Fewer blocks per cluster beat more,
+    smaller ones: each cluster waits for its slowest block before it writes.
+    Cached: the wrappers call it on every launch."""
     elem = torch.empty((), dtype=dtype).element_size()
     vec = 16 // elem if channels % (16 // elem) == 0 else 1
     tensors = 2 if backward else 1
@@ -141,7 +184,10 @@ def adain_route(batch: int, positions: int, channels: int, dtype: torch.dtype,
         if plan.shared_bytes <= target:
             return plan
         fallback = fallback or plan
-    return fallback or adain_two_pass_plan(batch, positions, channels, dtype, sms)
+    return (fallback
+            or adain_resident_plan(batch, positions, channels, dtype, shared_per_block, sms,
+                                   backward)
+            or adain_two_pass_plan(batch, positions, channels, dtype, sms))
 
 
 def fused_adain_plain_with_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -187,19 +233,19 @@ def _library() -> ctypes.CDLL:
     if lib.adain_forward.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.adain_device_limits.restype = i32
-        lib.adain_device_limits.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.adain_device_limits.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
         lib.adain_forward.restype = i32
-        lib.adain_forward.argtypes = ([ptr] * 6 + [i32] * 7 + [i64] * 2 + [i32] * 3
+        lib.adain_forward.argtypes = ([ptr] * 7 + [i32] * 8 + [i64] * 2 + [i32] * 3
                                       + [ctypes.c_float, ptr])
         lib.adain_backward.restype = i32
-        lib.adain_backward.argtypes = [ptr] * 8 + [i32] * 7 + [i64] + [i32] * 4 + [ptr]
+        lib.adain_backward.argtypes = [ptr] * 9 + [i32] * 8 + [i64] + [i32] * 4 + [ptr]
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def device_limits(index: int) -> Tuple[int, int]:
     """(opt-in shared memory per block in bytes, SM count) of a CUDA device,
-    read once."""
+    read once: :func:`adain_route`'s card arguments."""
     sms, smem = ctypes.c_int(), ctypes.c_int()
     err = _library().adain_device_limits(index, ctypes.byref(sms), ctypes.byref(smem))
     if err != 0:
@@ -242,10 +288,31 @@ def _check(x: torch.Tensor, *params: Tuple[str, torch.Tensor]) -> None:
 
 
 def _aligned(plan: AdainPlan, *tensors: torch.Tensor) -> AdainPlan:
-    """16-byte accesses need 16-byte aligned data (a view may start anywhere)."""
+    """16-byte accesses need 16-byte aligned data (a view may start anywhere).
+    Scalar accesses take no more shared memory (fewer lanes to reduce)."""
     if plan.vec > 1 and any(t.data_ptr() % 16 for t in tensors):
         return plan._replace(vec=1)
     return plan
+
+
+def _scratch(plan: AdainPlan, batch: int, channels: int, device: torch.device):
+    """(partials, arrival counters) of one launch, None where the route
+    takes none: float32 (B, parts, 2, C) for the two-pass and co-resident
+    routes, and for the co-resident one an int32 counter per (sample,
+    group), zeroed on every call (a replayed CUDA graph replays the zeroing
+    too)."""
+    if plan.route == "one_pass":
+        return None, None
+    partial = torch.empty((batch, plan.parts, 2, channels), dtype=torch.float32, device=device)
+    if plan.route == "two_pass":
+        return partial, None
+    arrived = torch.zeros(batch * math.ceil(channels / plan.group), dtype=torch.int32,
+                          device=device)
+    return partial, arrived
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def fused_adain_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -268,7 +335,9 @@ def launch_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
     """Launch the forward kernel(s) of ``plan`` on checked CUDA tensors.
     :func:`fused_adain_forward` passes :func:`adain_route`'s plan; a
     measurement may pass :func:`adain_two_pass_plan` to time the other
-    route on the same shape."""
+    route on the same shape.  The two-pass and co-resident routes take a
+    float32 scratch of partials, the co-resident one also zeroed arrival
+    counters, one per (sample, group)."""
     batch, channels = x.shape[0], x.shape[-1]
     out = torch.empty_like(x)
     stats = torch.empty((batch, 2, channels), dtype=torch.float32, device=x.device)
@@ -277,15 +346,14 @@ def launch_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
     positions = x.numel() // (batch * channels)
     scale, bias = _param(scale), _param(bias)
     plan = _aligned(plan, x)
-    partial = (torch.empty((batch, plan.parts, 2, channels), dtype=torch.float32, device=x.device)
-               if plan.route == "two_pass" else None)
+    partial, arrived = _scratch(plan, batch, channels, x.device)
     with _current(x.device):
         err = _library().adain_forward(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            None if partial is None else partial.data_ptr(), batch, positions, channels,
-            _ROUTE_CODES[plan.route], plan.group, plan.vec, plan.parts, scale.stride(0),
-            bias.stride(0), _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
-            _DTYPE_CODES[bias.dtype], float(eps), torch.cuda.current_stream().cuda_stream)
+            _ptr(partial), _ptr(arrived), batch, positions, channels, _ROUTE_CODES[plan.route],
+            plan.group, plan.vec, plan.parts, plan.wave, scale.stride(0), bias.stride(0),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], _DTYPE_CODES[bias.dtype],
+            float(eps), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"adain_forward launch failed ({plan}): cudaError {err}")
     cuda_build.count_launch(fused_adain_forward)
@@ -328,16 +396,15 @@ def launch_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale
         stats = stats.float().contiguous()
         params = _param(scale)
         plan = _aligned(plan, x, g)
-        partial = (torch.empty((batch, plan.parts, 2, channels), dtype=torch.float32,
-                               device=x.device) if plan.route == "two_pass" else None)
+        partial, arrived = _scratch(plan, batch, channels, x.device)
         with _current(x.device):
             err = _library().adain_backward(
                 x.data_ptr(), g.data_ptr(), stats.data_ptr(), params.data_ptr(), dx.data_ptr(),
-                dscale.data_ptr(), dbias.data_ptr(),
-                None if partial is None else partial.data_ptr(), batch, positions, channels,
-                _ROUTE_CODES[plan.route], plan.group, plan.vec, plan.parts, params.stride(0),
-                _DTYPE_CODES[x.dtype], _DTYPE_CODES[params.dtype], _DTYPE_CODES[out_dtypes[0]],
-                _DTYPE_CODES[out_dtypes[1]], torch.cuda.current_stream().cuda_stream)
+                dscale.data_ptr(), dbias.data_ptr(), _ptr(partial), _ptr(arrived), batch,
+                positions, channels, _ROUTE_CODES[plan.route], plan.group, plan.vec, plan.parts,
+                plan.wave, params.stride(0), _DTYPE_CODES[x.dtype], _DTYPE_CODES[params.dtype],
+                _DTYPE_CODES[out_dtypes[0]], _DTYPE_CODES[out_dtypes[1]],
+                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"adain_backward launch failed ({plan}): cudaError {err}")
         cuda_build.count_launch(fused_adain_backward)

@@ -765,7 +765,8 @@ class ConfigNetFirstStage:
         """Train over ``mesh`` (``parallel/mesh.py``), or on this device alone
         with None.  The batch must shard evenly (its generator half too), the
         model must live on the mesh's device, and every rank takes rank 0's
-        parameter trees and Adam moments."""
+        parameter trees and Adam moments (with ``amsgrad``, the running
+        maximum too)."""
         self.mesh = mesh
         if mesh is None:
             return
@@ -779,7 +780,8 @@ class ConfigNetFirstStage:
             replicate(mesh, getattr(self, tree))
         replicate(mesh, [state[key] for optimizer in self.optimizers.values()
                          for state in optimizer.state.values()
-                         for key in ("exp_avg", "exp_avg_sq") if key in state])
+                         for key in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
+                         if key in state])
 
     def _check_mesh_device(self, mesh) -> None:
         # an empty tensor resolves "cuda" to the current card's index

@@ -11,10 +11,12 @@ generator adds its ``map_2d_2c`` block, the seventh AdaIN site, of
 - A 512px reference release (tests/helpers.write_reference_checkpoint, every
   weight shifted by 0.5) loads through both packages' ``load_confignet`` to
   the same weights bit for bit, and both render it alike.
-- The AdaIN launch plan at the 512 site: two passes, forward and backward,
-  at every batch of the 512 path, in float32 and bfloat16, on an H100's
-  limits; and the plain forward and its autograd backward at that site
-  against the JAX Pallas kernel (interpret mode) and its custom VJP.
+- The AdaIN launch plan at the 512 site: one pass over co-resident blocks,
+  forward and backward, at every batch of the 512 path, in float32 and
+  bfloat16, on an H100's limits, its blocks covering every (sample, group)
+  and every row once; and the plain forward and its autograd backward at
+  that site against the JAX Pallas kernel (interpret mode) and its custom
+  VJP.
 
 The fine-tune and the stage-2 step at 512px are in
 tests/test_torch_512_fine_tune.py and tests/test_torch_512_second_stage.py.
@@ -34,7 +36,8 @@ from confignet_tpu.training.second_stage import ConfigNet as JaxConfigNet
 from helpers import TINY_FIRST_STAGE_CONFIG, write_reference_checkpoint
 from test_torch_second_stage import give_heads_weights
 from confignet_tpu_torch.core import model_io
-from confignet_tpu_torch.ops.adain_cuda import adain_route, adain_two_pass_plan, fused_adain
+from confignet_tpu_torch.ops.adain_cuda import (
+    adain_resident_plan, adain_route, adain_two_pass_plan, fused_adain)
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.latent_gan import LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
@@ -160,14 +163,59 @@ def test_adain_route_takes_two_passes_at_the_512_site(dtype, backward):
     """At every batch of the 512 path (the fine-tune's 1, the G step's 12,
     the D updates' 24, a serving chunk's 32) the 512 site's slab is too
     large for a 16-block cluster, forward and backward, so the call takes
-    the two-pass route, with a grid within the card's limits."""
+    the co-resident route (one pass); the two-pass route that chip_smoke.py
+    times beside it keeps a grid within the card's limits."""
     positions, channels = SITE_512
     for batch in (1, 12, 24, 32):
         plan = adain_route(batch, positions, channels, dtype, *H100_LIMITS, backward)
-        assert plan == adain_two_pass_plan(batch, positions, channels, dtype, H100_LIMITS[1])
-        assert plan.route == "two_pass" and channels % plan.group == 0, plan
+        assert plan == adain_resident_plan(batch, positions, channels, dtype, *H100_LIMITS,
+                                           backward)
+        assert plan.route == "resident" and channels % plan.group == 0, plan
         assert plan.vec == 16 // torch.empty((), dtype=dtype).element_size()
-        assert 1 <= plan.parts <= 65535 and plan.shared_bytes <= 48 * 1024, plan
+        two = adain_two_pass_plan(batch, positions, channels, dtype, H100_LIMITS[1])
+        assert two.route == "two_pass" and channels % two.group == 0, two
+        assert 1 <= two.parts <= 65535 and two.shared_bytes <= 48 * 1024, two
+
+
+def resident_coverage(plan, batch, positions, channels):
+    """How often the co-resident grid of ``plan`` takes each (sample, group)
+    work item and each (item, row), following csrc/adain.cu: block ->
+    (slot, part); slot s takes the items s, s + wave, ...; part k the rows
+    [k * per, min(P, (k + 1) * per))."""
+    groups = -(-channels // plan.group)
+    per = -(-positions // plan.parts)
+    items = np.zeros((batch * groups, plan.parts), np.int64)
+    rows = np.zeros((batch * groups, positions), np.int64)
+    for block in range(plan.wave * plan.parts):
+        slot, part = divmod(block, plan.parts)
+        for item in range(slot, batch * groups, plan.wave):
+            items[item, part] += 1
+            rows[item, part * per:min(positions, (part + 1) * per)] += 1
+    return items, rows
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_resident_plan_covers_the_512_site(dtype, backward):
+    """The co-resident plan at every batch of the 512 path: each block's
+    shared memory within the opt-in limit, so that an SM holds it; wave x
+    parts blocks within the card's resident blocks at one block per SM (a
+    cooperative launch is refused beyond the resident blocks, and the waits
+    need every block of an item running) and leaving fewer SMs idle than a
+    slab's parts; every (sample, group) taken by each of its parts once and
+    every row of every item by exactly one block."""
+    positions, channels = SITE_512
+    smem, sms = H100_LIMITS
+    elem = torch.empty((), dtype=dtype).element_size()
+    for batch in (1, 12, 24, 32):
+        plan = adain_route(batch, positions, channels, dtype, *H100_LIMITS, backward)
+        assert plan.shared_bytes <= smem, plan
+        assert sms - plan.parts < plan.wave * plan.parts <= sms, plan
+        assert plan.wave <= batch, plan
+        per = -(-positions // plan.parts)
+        assert per * plan.group * elem * (2 if backward else 1) < plan.shared_bytes, plan
+        items, rows = resident_coverage(plan, batch, positions, channels)
+        assert (items == 1).all() and (rows == 1).all(), plan
 
 
 @pytest.mark.parametrize("batch", [1, 2])

@@ -10,9 +10,9 @@ import torch
 
 from confignet_tpu_torch.core.transforms import euler_angles_to_matrix
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_route, adain_two_pass_plan, device_limits, fused_adain, fused_adain_backward,
-    fused_adain_backward_plain, fused_adain_forward, fused_adain_plain, fused_adain_plain_with_stats,
-    launch_backward, launch_forward)
+    adain_route, adain_two_pass_plan, device_limits, fused_adain,
+    fused_adain_backward, fused_adain_backward_plain, fused_adain_forward, fused_adain_plain,
+    fused_adain_plain_with_stats, launch_backward, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
     device_limits as rotate_device_limits, launch_rotate_forward, launch_rotate_transpose,
     rotate_3d_grid_forward, rotate_3d_grid_kernel, rotate_3d_grid_kernel_train, rotate_3d_grid_plain,
@@ -114,6 +114,10 @@ ADAIN_SITES_256 = [(3, 512, 256), (3, 4096, 128), (3, 256, 256), (3, 1024, 64), 
 ADAIN_SITES_256_B1 = [(1,) + site[1:] for site in ADAIN_SITES_256]
 # the 512px generator's seventh site (map_2d_2c) at the fine-tune's and the G step's batches
 ADAIN_SITE_512 = [(1, 65536, 16), (12, 65536, 16)]
+# the co-resident route with a short last part and a short last wave, and
+# with 96 channels in groups (32 float32 or 64 bfloat16 channels, the last
+# bfloat16 group half empty)
+ADAIN_RESIDENT_ODD = [(7, 70001, 16), (3, 60000, 96)]
 
 
 def adain_inputs(shape, dtype, device, seed):
@@ -148,31 +152,39 @@ def test_adain_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SITE_512)
+@pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SITE_512
+                         + ADAIN_RESIDENT_ODD)
 def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
     """The route adain_route picks and the two-pass route forced on the same
-    shape; (2, 256, 256, 16) in float32 takes the two-pass route by itself."""
+    shape, each against the plain version; (2, 256, 256, 16) in float32 and
+    the 512 site take the co-resident route by themselves.  The picked
+    route's two launches agree bit for bit (fixed-order merges)."""
     x, _, scale, bias = adain_inputs(shape, dtype, cuda, 5)
     batch, channels = shape[0], shape[-1]
     positions = x.numel() // (batch * channels)
     smem, sms = device_limits(x.device.index)
     picked = adain_route(batch, positions, channels, dtype, smem, sms)
     if shape == (2, 256, 256, 16) and dtype == torch.float32:
-        assert picked.route == "two_pass"
+        assert picked.route == "resident"
     if shape in ADAIN_SITES_256 + ADAIN_SITES_256_B1:
         assert picked.route == "one_pass"
-    if shape in ADAIN_SITE_512:
-        assert picked.route == "two_pass"
+    if shape in ADAIN_SITE_512 + ADAIN_RESIDENT_ODD:
+        assert picked.route == "resident"
     want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
     for plan in (picked, adain_two_pass_plan(batch, positions, channels, dtype, sms)):
         got, stats = launch_forward(x, scale, bias, 1e-3, plan)
         torch.cuda.synchronize()
         assert checked_error(got, want) <= TOL[dtype]["adain"], plan
         assert sum_error(stats, want_stats) <= 1e-4, plan
+    got, stats = launch_forward(x, scale, bias, 1e-3, picked)
+    again, stats_again = launch_forward(x, scale, bias, 1e-3, picked)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(stats, stats_again), picked
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES + ADAIN_SITE_512)
+@pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES + ADAIN_SITE_512
+                         + ADAIN_RESIDENT_ODD)
 def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
     """The backward kernel on its own route and on the forced two-pass route
     against its plain version on the same saved statistics; two launches
@@ -190,6 +202,9 @@ def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
     forced = launch_backward(x, g, stats, scale, bias.dtype,
                              adain_two_pass_plan(batch, positions, channels, dtype,
                                                  device_limits(x.device.index)[1]))
+    if shape in ADAIN_SITE_512 + ADAIN_RESIDENT_ODD:
+        assert adain_route(batch, positions, channels, dtype, *device_limits(x.device.index),
+                           backward=True).route == "resident"
     for name, a, b, c, d in zip(("dx", "dscale", "dbias"), got, again, want, forced):
         assert a.dtype == c.dtype and a.shape == c.shape, name
         assert torch.equal(a, b), name

@@ -20,8 +20,8 @@ from confignet_tpu_torch.core import transforms
 from confignet_tpu_torch.core.model_io import load_jax_params
 from confignet_tpu_torch.ops import norms
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_route, adain_two_pass_plan, fused_adain, fused_adain_backward, fused_adain_backward_plain,
-    fused_adain_plain, fused_adain_plain_with_stats)
+    adain_resident_plan, adain_route, adain_two_pass_plan, fused_adain, fused_adain_backward,
+    fused_adain_backward_plain, fused_adain_plain, fused_adain_plain_with_stats)
 from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last
 from confignet_tpu_torch.ops.norms import adain_modulate
 from confignet_tpu_torch.ops.rotate_cuda import (
@@ -30,6 +30,8 @@ from confignet_tpu_torch.ops.rotate_cuda import (
 from confignet_tpu_torch.ops.upconv import UpConv
 
 torch.set_num_threads(1)
+
+H100 = (232448, 132)  # opt-in shared memory per block, SMs
 
 
 def _flat(params):
@@ -191,22 +193,31 @@ def test_adain_backward_plain_mixed_dtypes_match_jax(cotangent):
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_adain_route_takes_one_pass_at_256px(dtype, backward):
-    """Under an H100's 227 KB of opt-in shared memory per block and 132 SMs,
-    every 256px AdaIN site at the main path's batches (the fine-tune's 1
-    too) takes the one-pass cluster route, within the card's limits; the
-    512px float32 site does not fit a cluster and takes two passes."""
+    """Under an H100's 227 KB of opt-in shared memory per block and 132
+    SMs, every 256px AdaIN site at the main path's batches
+    (the fine-tune's 1 too) takes the one-pass cluster route, within the
+    card's limits; the 512px site does not fit a cluster and takes one pass
+    over co-resident blocks, its grid one block per SM at most; a slab
+    larger than the card's SMs hold takes two passes."""
     sites = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
     for batch in (1, 12, 24, 32, 256):
         for positions, channels in sites:
-            plan = adain_route(batch, positions, channels, dtype, 232448, 132, backward)
+            plan = adain_route(batch, positions, channels, dtype, *H100, backward)
             assert plan.route == "one_pass", (batch, positions, channels, plan)
             assert plan.parts in (1, 2, 4, 8, 16) and plan.group % plan.vec == 0, plan
             assert plan.shared_bytes <= (232448 // 2 if plan.parts > 8 else 232448), plan
             assert plan.vec == 16 // torch.empty((), dtype=dtype).element_size()
-    two = adain_route(256, 65536, 16, torch.float32, 232448, 132, backward)
-    assert two.route == "two_pass" and 1 <= two.parts <= 65536
-    assert two == adain_two_pass_plan(256, 65536, 16, torch.float32, 132)
-    odd = adain_route(2, 9, 5, dtype, 232448, 132, backward)
+    resident = adain_route(256, 65536, 16, torch.float32, *H100, backward)
+    assert resident == adain_resident_plan(256, 65536, 16, torch.float32, *H100, backward)
+    assert resident.route == "resident" and resident.shared_bytes <= H100[0], resident
+    assert resident.wave * resident.parts <= H100[1]
+    elem = torch.empty((), dtype=dtype).element_size()
+    larger = H100[0] * H100[1] // (16 * elem) + 1  # rows of 16 channels: more than the SMs hold
+    assert adain_resident_plan(2, larger, 16, dtype, *H100, backward) is None
+    two = adain_route(2, larger, 16, dtype, *H100, backward)
+    assert two.route == "two_pass" and 1 <= two.parts <= 65535
+    assert two == adain_two_pass_plan(2, larger, 16, dtype, 132)
+    odd = adain_route(2, 9, 5, dtype, *H100, backward)
     assert (odd.route, odd.group, odd.vec, odd.parts) == ("one_pass", 5, 1, 1)
 
 

@@ -70,10 +70,23 @@ def _feeder(arrays, convert):
     return draw
 
 
-@pytest.fixture(scope="module")
-def stepped():
+def _player_trees(state, field):
+    """{player: {tree: flat leaves}} of one field of each player's optimizer
+    state (optax adam or amsgrad: (ScaleBy...State, ...))."""
+    out = {}
+    for player, trees in PLAYER_TREES.items():
+        value = getattr(getattr(state, player).opt_state[0], field)
+        out[player] = ({tree: _flat(value[tree]) for tree in trees}
+                       if player == "generator" else {player: _flat(value)})
+    return out
+
+
+def step_both(config):
+    """One stage-1 step of ``config`` through the JAX package and the port
+    from the same weights, batch and draws: (JAX's, the port's) losses,
+    first moments, EMA generator and port model."""
     dataset = FakeDataset(n_images=8, img_size=128)
-    jmodel = jax_first_stage.ConfigNetFirstStage(dict(TINY_FIRST_STAGE_CONFIG))
+    jmodel = jax_first_stage.ConfigNetFirstStage(dict(config))
     latents, rotations, flips = _draws(jmodel.config["latent_dim"])
     weights = {name: _flat(tree) for name, tree in jmodel.get_weights().items()}
     vgg_params = jmodel.perceptual_loss.variables["params"]
@@ -92,16 +105,12 @@ def stepped():
         step_fn = jmodel._build_train_step()
         state, jlosses = step_fn(jmodel.state, jmodel.keychain.next(), batch, vgg_params)
     assert not (j_latent.remaining or j_rot.remaining or flip_queue)
-    jax_moments = {}
-    for player, trees in PLAYER_TREES.items():
-        mu = getattr(state, player).opt_state[0].mu  # optax adam: (ScaleByAdamState, ...)
-        jax_moments[player] = ({tree: _flat(mu[tree]) for tree in trees}
-                               if player == "generator" else {player: _flat(mu)})
     jax_result = dict(losses={k: {kk: float(vv) for kk, vv in v.items()} for k, v in jlosses.items()},
-                      moments=jax_moments, ema=_flat(state.generator_smoothed))
+                      moments=_player_trees(state, "mu"), ema=_flat(state.generator_smoothed),
+                      state=state)
 
     # the port, on the same weights, batch and draws
-    model = ConfigNetFirstStage(dict(TINY_FIRST_STAGE_CONFIG, rotation_resample_train="kernel_train",
+    model = ConfigNetFirstStage(dict(config, rotation_resample_train="kernel_train",
                                      adain_impl="kernel"), device="cpu")
     model.set_weights(weights)
     load_jax_params(model.perceptual_loss.vgg, _flat(vgg_params))
@@ -113,12 +122,16 @@ def stepped():
                 or model._flip_mask.remaining)
     port_result = dict(losses={k: {kk: float(vv) for kk, vv in v.items()} for k, v in losses.items()},
                        moments=model.first_moments(),
-                       ema=model.get_weights()["generator_smoothed"])
+                       ema=model.get_weights()["generator_smoothed"], model=model)
     return jax_result, port_result
 
 
-def test_step_losses_match_jax(stepped):
-    jax_result, port_result = stepped
+@pytest.fixture(scope="module")
+def stepped():
+    return step_both(TINY_FIRST_STAGE_CONFIG)
+
+
+def check_losses(jax_result, port_result):
     assert set(port_result["losses"]) == set(jax_result["losses"]) == {"g", "d", "synth_d", "latent_d"}
     for group, want in jax_result["losses"].items():
         got = port_result["losses"][group]
@@ -128,10 +141,9 @@ def test_step_losses_match_jax(stepped):
     assert len([k for k in port_result["losses"]["d"] if k.startswith("gp_loss_")]) == 4
 
 
-@pytest.mark.parametrize("player", list(PLAYER_TREES))
-def test_step_gradients_match_jax(stepped, player):
-    jax_result, port_result = stepped
-    want_trees, got_trees = jax_result["moments"][player], port_result["moments"][player]
+def check_gradients(want_trees, got_trees, player):
+    """Per leaf rtol 1e-3, atol 1e-4 of the leaf's largest value; all leaves
+    together within 1e-3 relative L2 (module docstring)."""
     assert set(got_trees) == set(want_trees)
     for tree, want in want_trees.items():
         got = got_trees[tree]
@@ -146,11 +158,24 @@ def test_step_gradients_match_jax(stepped, player):
     assert np.linalg.norm(got_all - want_all) < 1e-3 * np.linalg.norm(want_all)
 
 
-def test_step_ema_matches_jax(stepped):
-    jax_result, port_result = stepped
+def check_ema(jax_result, port_result):
     assert set(port_result["ema"]) == set(jax_result["ema"])
     for key, value in jax_result["ema"].items():
         np.testing.assert_allclose(port_result["ema"][key], value, atol=1e-6, err_msg=key)
+
+
+def test_step_losses_match_jax(stepped):
+    check_losses(*stepped)
+
+
+@pytest.mark.parametrize("player", list(PLAYER_TREES))
+def test_step_gradients_match_jax(stepped, player):
+    jax_result, port_result = stepped
+    check_gradients(jax_result["moments"][player], port_result["moments"][player], player)
+
+
+def test_step_ema_matches_jax(stepped):
+    check_ema(*stepped)
 
 
 def test_two_discriminator_updates_per_step():
