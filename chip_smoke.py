@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out results.json] [--profile profile.txt]
     python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
-    python3 chip_smoke.py --loops-only | --demo-only | --mesh-only | --512-only
-                                                     (step 13, 14, 15 or 16 only)
+    python3 chip_smoke.py --loops-only | --demo-only | --mesh-only | --512-only | --bench-only
+                                                     (step 13, 14, 15, 16 or 17 only)
     python3 chip_smoke.py --first-step-probe probe.json  (the first-step bisect only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
@@ -204,7 +204,22 @@
    the plain path (step 7's rule); (f) with --profile, one 512px generate
    chunk (<stem>_512_generate.txt) and a 5-iteration fine-tune call
    (<stem>_512_fine_tune.txt).
-17. Prints the kernels' JSON record (launches per path, times on the
+17. The bench (confignet_tpu_torch/apps/bench.py and bench_train.py).
+   First each kernel against its plain version (step 3's and step 6's
+   phases) at every batch and dtype the bench's rows launch it, taken from
+   the bench's own constants, where no earlier phase checked it: serving's
+   B=128, the bf16 train rows' 24 and 12, the 512 site at the 512px row's
+   B=64 bf16.  Then every
+   row at full width and reduced counts: the headline (the bf16 256px
+   generator at B=256) and the 512px generator (B=64) over 2 forwards each,
+   eager and replayed as one CUDA graph; stage-1 and stage-2 steps at batch 24,
+   f32 and bf16, 2 timed after a warm step, through the prefetcher; the f32
+   fine-tune, 5 iterations; serving's encode, splice and generate at batch
+   128 in bf16, twice; the checkpoint windows of train() at 4 steps, every 2.
+   Each row holds its timed window's launches (zeroed just before, read just
+   after) to its path's, and must give finite rates under the JAX bench's
+   metric names; the step's time is printed.
+18. Prints the kernels' JSON record (launches per path, times on the
    float32 train step's path and, as train_step_512, on the 512px step's),
    then as the last line {"ok": true, "device": {...}}.
 
@@ -224,7 +239,6 @@ import multiprocessing
 import os
 import socket
 import struct
-import subprocess
 import sys
 import tempfile
 import threading
@@ -237,16 +251,20 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from confignet_tpu_torch.apps import confignet_demo
+from confignet_tpu_torch.apps import bench, bench_train, confignet_demo
 from confignet_tpu_torch.core import pickles, reference_import
+from confignet_tpu_torch.core.device import card_line
 from confignet_tpu_torch.core.model_io import attempt_reloading_checkpoint, load_confignet
 from confignet_tpu_torch.data.dataset import NeuralRendererDataset
 from confignet_tpu_torch.core.transforms import _source_coords, euler_angles_to_matrix, rotate_3d_grid
 from confignet_tpu_torch.data.distributions import fit_distribution
+from confignet_tpu_torch.data.fake import FakeDataset
 from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.models import generator as generator_module
 from confignet_tpu_torch.models.backbones.resnet import resnet50_preprocess
 from confignet_tpu_torch.ops import cuda_build
+from confignet_tpu_torch.ops.launches import (LAUNCH_NAMES, launch_counts, unit_launches,
+                                              zero_launch_counts)
 from confignet_tpu_torch.ops.adain_cuda import (
     adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
     fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
@@ -261,7 +279,8 @@ from confignet_tpu_torch.metrics.celeba_attribute_prediction import CelebaAttrib
 from confignet_tpu_torch.metrics.controllability import ControllabilityMetrics
 from confignet_tpu_torch.metrics.inception import InceptionFeatureExtractor, InceptionMetrics
 from confignet_tpu_torch.serving import ConfigNetServer
-from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+from confignet_tpu_torch.training.first_stage import (
+    METRIC_CHUNK, RENDER_CHUNK, ConfigNetFirstStage, checkpoint_chunks)
 from confignet_tpu_torch.training.latent_gan import LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
@@ -281,7 +300,7 @@ SAMPLE_N = 256  # ConfigNetServer.sample's request: 8 chunks of 32
 LATENT_GAN_STEPS = 20
 EVAL_IMAGES = 1000  # the evaluation dataset's images
 FID_SAMPLES = 1000  # the trainer's default n_samples_for_metrics (first_stage.py:767)
-FID_CHUNK = 64  # _metric_features_for_latents' chunk
+FID_CHUNK = METRIC_CHUNK  # _metric_features_for_latents' chunk
 JUDGE_STEPS = 10
 JUDGE_PREDICTIONS = 256
 CONTR_IMAGES = 64  # get_metrics without tuning: 17 generate calls of 2 chunks of 32
@@ -344,12 +363,6 @@ def compare(got, want):
     if got.dtype == want.dtype and got.dtype.is_floating_point and got.element_size() == 2:
         return diff.max().item(), (diff / want.float().abs().clamp(min=1.0)).max().item()
     return diff.max().item(), diff.max().item()
-
-
-def card_line() -> str:
-    result = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                            capture_output=True, text=True, timeout=60, check=True)
-    return result.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, budget_ms: float = 60.0, max_iters: int = 50) -> float:
@@ -718,52 +731,25 @@ def adain_backward_phase(batch: int, positions: int, channels: int, dtype, recor
         raise AssertionError(f"AdaIN backward kernel disagrees with its plain version: {rec}")
 
 
-class FakeDataset:
-    """A training set in the shape the trainer reads: uint8 images, eye masks,
-    face-model metadata and rotations within the configured ranges."""
-
-    def __init__(self, n_images: int, img_size: int, facemodel_dims: dict, seed: int):
-        rng = np.random.default_rng(seed)
-        self.imgs = rng.integers(0, 256, (n_images, img_size, img_size, 3), dtype=np.uint8)
-        self.eye_masks = (rng.random((n_images, img_size, img_size)) > 0.95).astype(np.uint8)
-        self.metadata_inputs = {name: rng.normal(size=(n_images, dim)).astype(np.float32)
-                                for name, dim in facemodel_dims.items()}
-        ranges = np.radians(np.asarray(((-30, 30), (-10, 10), (0, 0)), np.float64))
-        self.metadata_inputs["rotations"] = rng.uniform(
-            ranges[:, 0], ranges[:, 1], size=(n_images, 3)).astype(np.float32)
-
-
 def train_config(compute_dtype: str, **extra):
     return dict(TRAIN_CONFIG, compute_dtype=compute_dtype, **extra)
 
 
-KERNEL_WRAPPERS = (rotate_3d_grid_forward, rotate_3d_grid_transpose, fused_adain_forward,
-                   fused_adain_backward)
-LAUNCH_NAMES = ("rotate", "transpose", "adain", "adain_backward")
 # per 256px train step, both stages: rotation forward, transpose, AdaIN
 # forward (6 sites x 4 generator passes), AdaIN backward (6 sites x the G
 # step's 2 halves of 12)
-TRAIN_STEP_LAUNCHES = (4, 2, 24, 12)
+TRAIN_STEP_LAUNCHES = unit_launches("train_step", 256)  # (4, 2, 24, 12)
 # per fine-tune iteration: the gather resample (no rotation kernel), AdaIN
 # forward and backward at the 6 sites, batch 1
-FINE_TUNE_ITER_LAUNCHES = (0, 0, 6, 6)
+FINE_TUNE_ITER_LAUNCHES = unit_launches("fine_tune_iteration", 256)  # (0, 0, 6, 6)
 # per generator chunk of 32 at inference: one resample, six AdaIN sites
-CHUNK_LAUNCHES = (1, 0, 6, 0)
+CHUNK_LAUNCHES = unit_launches("forward", 256)  # (1, 0, 6, 0)
 # the same at 512px, whose generator adds a seventh AdaIN site (map_2d_2c,
 # (65536, 16) at full width, on the co-resident route): a generator chunk, a
 # fine-tune iteration, a train step
-CHUNK_LAUNCHES_512 = (1, 0, 7, 0)
-FINE_TUNE_ITER_LAUNCHES_512 = (0, 0, 7, 7)
-TRAIN_STEP_LAUNCHES_512 = (4, 2, 28, 14)
-
-
-def launch_counts():
-    return tuple(w.launches for w in KERNEL_WRAPPERS)
-
-
-def zero_launch_counts():
-    for wrapper in KERNEL_WRAPPERS:
-        wrapper.launches = 0
+CHUNK_LAUNCHES_512 = unit_launches("forward", 512)  # (1, 0, 7, 0)
+FINE_TUNE_ITER_LAUNCHES_512 = unit_launches("fine_tune_iteration", 512)  # (0, 0, 7, 7)
+TRAIN_STEP_LAUNCHES_512 = unit_launches("train_step", 512)  # (4, 2, 28, 14)
 
 
 def check_finite(losses, label):
@@ -1725,13 +1711,6 @@ def loop_dataset(config, seed: int):
     return dataset
 
 
-def checkpoint_chunks(model) -> int:
-    """Generator chunks of one stage-1 checkpoint: the render panel and the
-    synthetic panel in chunks of 32, and the fused FID chunks."""
-    panel = model.n_checkpoint_rotations * model.n_checkpoint_samples
-    return 2 * -(-panel // SERVE_CHUNK) + -(-LOOP_METRIC_SAMPLES // FID_CHUNK)
-
-
 def loop_launches(steps: int, checkpoints: int, render_chunks: int):
     """Launches of ``steps`` train steps and ``checkpoints`` checkpoints of
     ``render_chunks`` generator chunks each."""
@@ -1795,7 +1774,7 @@ def stage1_loop(dataset, directory: str, label: str, card: str, kind: str, async
                          n_steps=LOOP_STEPS, n_samples_for_metrics=LOOP_METRIC_SAMPLES, aml_run=sink)
     launches = launch_counts()
     checkpoints = -(-LOOP_STEPS // LOOP_PERIOD)
-    expected = loop_launches(LOOP_STEPS, checkpoints, checkpoint_chunks(model))
+    expected = loop_launches(LOOP_STEPS, checkpoints, checkpoint_chunks(model, LOOP_METRIC_SAMPLES))
     if launches != expected:
         raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {launches}, expected {expected}")
     if result["steps_run"] != LOOP_STEPS or model.checkpoint_events_run != checkpoints:
@@ -2118,7 +2097,7 @@ def training_loops(card: str, kind: str, profile_stem=None):
         if result["steps_run"] != LOOP_RESUME_STEPS - start or resumed.get_resume_step() != LOOP_RESUME_STEPS:
             raise AssertionError(f"the resumed loop ran {result}")
         check_files(resume_dir, checkpoint_files(2 * LOOP_PERIOD), "resumed loop")
-        expected = loop_launches(result["steps_run"], 1, checkpoint_chunks(resumed))
+        expected = loop_launches(result["steps_run"], 1, checkpoint_chunks(resumed, LOOP_METRIC_SAMPLES))
         if resumed_launches != expected:
             raise AssertionError(f"the resumed loop launched {resumed_launches}, expected {expected}")
         print(f"loop resume: attempt_reloading_checkpoint gave a ConfigNetFirstStage at step {start}; "
@@ -3131,6 +3110,98 @@ def path_512(card: str, kind: str, records: list, profile_stem=None) -> tuple:
     return launches, rec
 
 
+BENCH_CONFIG = bench_train.BENCH_CONFIG  # also the generator rows' widths (the reference's)
+BENCH_ITERS = 2  # the generator rows' forwards and the train rows' steps in step 17
+BENCH_FINE_TUNE_ITERS = 5
+BENCH_SERVING_ITERS = 2
+BENCH_CKPT_WINDOW, BENCH_CKPT_PERIOD = 4, 2
+# step 17's rows: the headline, then apps/bench_train.py's eight under their metric names
+BENCH_METRICS = (
+    "generator_fwd_256_throughput", "stage1_train_step_float32", "stage1_train_step_bfloat16",
+    "stage2_train_step_float32", "stage2_train_step_bfloat16", "one_shot_fine_tune",
+    "serving_encode_splice_generate", "generator_fwd_512_throughput", "train_loop_ckpt_steady",
+    "train_loop_ckpt_async", "train_loop_ckpt_sync", "ckpt_stall_per_event_async",
+    "ckpt_overhead_at_500_async", "ckpt_stall_per_event_sync", "ckpt_overhead_at_500_sync")
+
+
+def bench_shapes() -> dict:
+    """Where the bench's rows launch each kernel, from the bench's own
+    constants: {kernel: {(batch, dtype, output size)}}.  The generator
+    forwards: the headline, the 512px row, serving, the train rows' D renders
+    and G halves in both dtypes, the checkpoint windows' panel and metric
+    chunks (bf16); the backward kernels: the G halves, and for AdaIN the
+    float32 fine-tune's single photo (which also runs AdaIN's forward, but
+    resamples without the rotation kernel)."""
+    batch = BENCH_CONFIG["batch_size"]
+    forward = {(bench.BATCH, "bfloat16", 256), (bench_train.GEN512_BATCH, "bfloat16", 512),
+               (bench_train.SERVING_BATCH, "bfloat16", 256), (RENDER_CHUNK, "bfloat16", 256),
+               (METRIC_CHUNK, "bfloat16", 256)}
+    forward |= {(b, dtype, 256) for b in (batch, batch // 2) for dtype in ("float32", "bfloat16")}
+    halves = {(batch // 2, dtype, 256) for dtype in ("float32", "bfloat16")}
+    photo = {(1, "float32", 256)}
+    return {"rotate_cuda": forward, "adain_cuda": forward | photo,
+            "rotate_transpose_cuda": halves, "adain_backward_cuda": halves | photo}
+
+
+def bench_phases(records: list) -> int:
+    """Each kernel against its plain version at every shape of bench_shapes()
+    that no phase in ``records`` has checked yet.  Returns the phases run."""
+    def checked(kernel, batch, dtype, at=None):
+        return any(r["kernel"] == kernel and r["batch"] == batch and r["dtype"] == dtype
+                   and r.get("site") == at for r in records)
+
+    sites = {256: ADAIN_SITES_256, 512: ADAIN_SITES_256 + (ADAIN_SITE_512,)}
+    phases = {"rotate_cuda": rotate_phase, "rotate_transpose_cuda": transpose_phase}
+    site_phases = {"adain_cuda": adain_phase, "adain_backward_cuda": adain_backward_phase}
+    n_run = 0
+    for kernel, shapes in bench_shapes().items():
+        for batch, dtype, size in sorted(shapes):
+            if kernel in phases and not checked(kernel, batch, dtype):
+                phases[kernel](batch, getattr(torch, dtype), records)
+                n_run += 1
+            for positions, channels in sites[size] if kernel in site_phases else ():
+                if not checked(kernel, batch, dtype, site(positions, channels)):
+                    site_phases[kernel](batch, positions, channels, getattr(torch, dtype), records)
+                    n_run += 1
+    torch.cuda.empty_cache()
+    return n_run
+
+
+def bench_path(card: str, kind: str, records: list) -> tuple:
+    """Step 17: the kernels at the bench's shapes (bench_phases), then every
+    row of apps/bench.py and apps/bench_train.py at full width and reduced
+    counts, each row holding its own timed window's launch counts (zeroed
+    just before it, read just after).  Returns (the launches of all the
+    windows and graph captures, summed; the record)."""
+    t_step = time.perf_counter()
+    n_phases = bench_phases(records)
+    rows, device, config = [], "cuda", BENCH_CONFIG
+    bench_train.generator_throughput(rows, bench.METRIC, 256, bench.BATCH, BENCH_ITERS, device,
+                                     config)
+    for dtype in ("float32", "bfloat16"):
+        bench_train.bench_stage1(rows, dtype, BENCH_ITERS, config, device)
+        bench_train.bench_stage2(rows, dtype, BENCH_ITERS, config, device)
+    bench_train.bench_fine_tune(rows, BENCH_FINE_TUNE_ITERS, config, device)
+    bench_train.bench_serving(rows, BENCH_SERVING_ITERS, config, device)
+    bench_train.bench_generator_512(rows, BENCH_ITERS, config, device)
+    bench_train.bench_checkpointing(rows, BENCH_CKPT_WINDOW, BENCH_CKPT_PERIOD, config, device)
+    torch.cuda.empty_cache()
+    if sorted(r["metric"] for r in rows) != sorted(BENCH_METRICS):
+        raise AssertionError(f"bench rows {[r['metric'] for r in rows]}, expected {BENCH_METRICS}")
+    for row in rows:
+        if not (np.isfinite(row["value"]) and row["value"] >= 0
+                and (row["card"], row["kind"]) == (card, kind)):
+            raise AssertionError(f"bench row {row}")
+    # every window once (a derived row repeats the window it is derived from)
+    windows = [r["launches"] for r in rows if "windows" not in r]
+    windows += [r["graph_launches"] for r in rows if r.get("graph_launches")]
+    launches = tuple(sum(w[name] for w in windows) for name in LAUNCH_NAMES)
+    rec = dict(rows=rows, phases_run=n_phases, seconds=time.perf_counter() - t_step)
+    print(f"bench: step 17 took {rec['seconds']:.1f} s ({n_phases} kernel phases); "
+          f"launches {launches}", flush=True)
+    return launches, rec
+
+
 def profile(label: str, fn, path: str) -> None:
     """Device time of one warm call of ``fn``, by kernel name
     (torch.profiler), beside its host wall time."""
@@ -3184,6 +3255,9 @@ def main() -> int:
                         "(no kernels line and no result line)")
     parser.add_argument("--512-only", dest="only_512", action="store_true",
                         help="only build the kernels and run step 16, the 512px path, then stop "
+                        "(no kernels line and no result line)")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="only build the kernels and run step 17, the bench rows, then stop "
                         "(no kernels line and no result line)")
     parser.add_argument("--first-step-probe", metavar="PATH",
                         help="only build the kernels, run three float32 stage-2 steps from the same "
@@ -3251,6 +3325,15 @@ def main() -> int:
                                                   "launches": launches_512, "path_512": rec_512},
                                                  indent=1))
         print(f"total {time.perf_counter() - t_start:.1f} s (step 16 only)")
+        return 0
+    if args.bench_only:
+        records = []
+        _, bench_rec = bench_path(card, kind, records)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "phases": records,
+                                                  "bench": bench_rec}, indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 17 only)")
         return 0
 
     # -- 3. kernel phases ------------------------------------------------------
@@ -3461,7 +3544,11 @@ def main() -> int:
     path_launches.update(launches_512)
     torch.cuda.empty_cache()
 
-    # -- 17. records -----------------------------------------------------------------
+    # -- 17. the bench: apps/bench.py's headline and apps/bench_train.py's rows ---------
+    path_launches["bench"], bench_rec = bench_path(card, kind, records)
+    torch.cuda.empty_cache()
+
+    # -- 18. records -----------------------------------------------------------------
     sites_256 = {site(*s) for s in ADAIN_SITES_256}
     sites_512 = sites_256 | {site(*ADAIN_SITE_512)}
 
@@ -3535,7 +3622,8 @@ def main() -> int:
                "serve_512": {"rotate_cuda", "adain_cuda"},
                "demo_512": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
                "fine_tune_512": {"adain_cuda", "adain_backward_cuda"},
-               "train_512": {item["name"] for item in kernels}}
+               "train_512": {item["name"] for item in kernels},
+               "bench": {item["name"] for item in kernels}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -3550,7 +3638,7 @@ def main() -> int:
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
              "sampling": sampling, "evaluation": evaluation, "loops": loops, "demo": demo,
-             "mesh": mesh, "path_512": rec_512,
+             "mesh": mesh, "path_512": rec_512, "bench": bench_rec,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

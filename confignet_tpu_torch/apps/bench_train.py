@@ -1,0 +1,632 @@
+"""Training-path benchmarks of the port on one GPU: the counterpart of the
+JAX package's ``bench_train.py`` at the repository root, with its rows,
+metric names and configuration.
+
+    python3 -m confignet_tpu_torch.apps.bench_train [--only NAMES] [--iters 10]
+        [--batch_size N] [--r1_heads all|final] [--set key=json ...]
+        [--device cuda|cpu] [--out PATH]
+
+Prints one JSON line a row and writes the rows to ``--out`` (by default
+``chiprun_out/bench_train.json`` in the checkout).  ``--only`` takes a comma
+list of ``stage1_f32, stage1_bf16, stage2_f32, stage2_bf16, fine_tune,
+serving, gen512, checkpointing``:
+
+- ``stage{1,2}_train_step_{float32,bfloat16}``: steps/s of the stage's train
+  step at ``BENCH_CONFIG`` (256px, batch 24), ``--iters`` steps chained with
+  no host sync after one warm step, ending at the last step's
+  ``g/loss_sum``; batches come through ``data/prefetch.BatchPrefetcher``, or
+  with ``BENCH_STAGED=1`` three batches staged on the device beforehand
+  (the metric then ends in ``_staged``).  ``_b<N>`` marks a batch other than
+  24 and ``_r1_final`` the single-head R1 penalty.
+- ``one_shot_fine_tune``: iters/s of ``ConfigNet.fine_tune_on_img`` on one
+  photo (f32; one warm iteration, then 50 timed).
+- ``serving_encode_splice_generate``: img/s of ``ConfigNetServer``'s encode,
+  ``blendshape_values`` splice and generate as one batch-128 bf16 call on
+  uint8 photos staged on the device once.
+- ``generator_fwd_512_throughput``: img/s of the 512px bf16 generator at
+  batch 64, the headline's method (``apps/bench.py``): eager, and replayed
+  as one CUDA graph (``graph_img_s``).
+- ``train_loop_ckpt_{steady,async,sync}``: steps/s of one stage-1 model's
+  ``train()`` (bf16) over three windows of 40 steps: no checkpoint, one every
+  10 steps on the worker thread, one every 10 steps inline; then
+  ``ckpt_stall_per_event_*`` (s) and ``ckpt_overhead_at_500_*`` (% at the
+  500-step cadence).  Rows are refused when the checkpoints that ran differ
+  from the schedule.
+
+Every timed window starts with the four kernel wrappers' launch counters at
+zero and ends by holding them to the window's launches: a generator forward
+(1, 0, 6, 0) at 256px and (1, 0, 7, 0) at 512px, a train step (4, 2, 24, 12),
+a fine-tune iteration (0, 0, 6, 6), in (rotation, transpose, AdaIN, AdaIN
+backward); none on the CPU.  So no row can time the plain path on the card.
+A row that raises prints an error row; the others still run, and the
+process exits 1.  TF32 is off.  Each row names its device, and on the card
+the card (``nvidia-smi`` name and power limit) and its peak memory.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import gc
+import itertools
+import json
+import math
+import os
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from confignet_tpu_torch.core import initializers
+from confignet_tpu_torch.core.device import card_line, resolve_device
+from confignet_tpu_torch.data.distributions import fit_distribution
+from confignet_tpu_torch.data.fake import FakeDataset
+from confignet_tpu_torch.data.prefetch import BatchPrefetcher
+from confignet_tpu_torch.models.generator import HologanGenerator
+from confignet_tpu_torch.ops.launches import (LAUNCH_NAMES, launch_counts, scaled, unit_launches,
+                                              zero_launch_counts)
+from confignet_tpu_torch.serving import ConfigNetServer
+from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage, checkpoint_chunks
+from confignet_tpu_torch.training.second_stage import ConfigNet
+
+BENCH_CONFIG = {
+    # Reference-scale model: 256px output, 5 discriminator layers, the
+    # standard 145-dim latent layout.  Facemodel input dims are plausible
+    # stand-ins (they only size the tiny per-param MLPs).
+    "output_shape": (256, 256, 3),
+    "n_discr_layers": 5,
+    "batch_size": 24,  # reference default (confignet_first_stage.py:53)
+    "facemodel_inputs": {
+        "texture_embedding": (60, 30),
+        "geometry_identity_params": (60, 30),
+        "blendshape_values": (51, 30),
+        "beard_style_embedding": (7, 7),
+        "eyebrow_style_embedding": (7, 7),
+        "lower_eyelash_style": (2, 2),
+        "upper_eyelash_style": (2, 2),
+        "head_hair_style_embedding": (9, 9),
+        "eye_color": (3, 3),
+        "head_hair_color": (3, 3),
+        "hdri_embedding": (20, 20),
+        "bone_rotations:left_eye": (2, 2),
+    },
+    "metrics_checkpoint_period": 10 ** 9,
+    "image_checkpoint_period": 10 ** 9,
+}
+ROW_NAMES = ("stage1_f32", "stage1_bf16", "stage2_f32", "stage2_bf16", "fine_tune", "serving",
+             "gen512", "checkpointing")
+LATENT_DIM = 145  # the generator rows' latent, as bench.py's
+SERVING_BATCH = 128
+GEN512_BATCH, GEN512_ITERS = 64, 10
+DEFAULT_OUT = Path(__file__).resolve().parents[2] / "chiprun_out" / "bench_train.json"
+
+def check_launches(label: str, expected: tuple, device: torch.device) -> Dict[str, int]:
+    """The launch counters since the last zeroing, held to ``expected`` (to
+    none on the CPU, where the wrappers take their plain versions)."""
+    got = launch_counts()
+    want = tuple(expected) if device.type == "cuda" else (0,) * len(LAUNCH_NAMES)
+    if got != want:
+        raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {got}, expected {want}")
+    return dict(zip(LAUNCH_NAMES, got))
+
+
+def device_fields(device: torch.device) -> Dict[str, Any]:
+    """What every row says of where it ran."""
+    if device.type != "cuda":
+        return {"device": device.type, "kind": None, "card": None}
+    return {"device": "cuda", "kind": torch.cuda.get_device_name(device), "card": card_line()}
+
+
+def tf32_on(device: torch.device) -> bool:
+    return device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                                      or torch.backends.cudnn.allow_tf32)
+
+
+def turn_tf32_off() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def start_window(device: torch.device) -> None:
+    """Wait for queued work, clear the peak memory and zero the counters."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+
+
+def peak_gb(device: torch.device) -> Optional[float]:
+    return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+
+
+def release(device: torch.device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _emit(results: List[dict], metric: str, value: float, unit: str, **extra) -> dict:
+    row = {"metric": metric, "value": value, "unit": unit, **extra}
+    results.append(row)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def poses(batch: int, rng) -> np.ndarray:
+    """The reference's head-pose sampling ranges (yaw +-30deg, pitch
+    +-10deg, roll 0), as bench.py draws them: the rotation kernel's work
+    depends on the poses, so the bench uses the real distribution."""
+    rot = rng.uniform(-1.0, 1.0, size=(batch, 3)).astype(np.float32)
+    rot *= np.array([np.pi / 6, np.pi / 18, 0.0], np.float32)
+    return rot
+
+
+def fake_dataset(config: dict, distributions: bool = False) -> FakeDataset:
+    """64 fake images at the config's size; with ``distributions`` also
+    exemplar distributions of the metadata, which ``train()`` stores in its
+    checkpoints."""
+    dataset = FakeDataset(64, config["output_shape"][0],
+                          {k: v[0] for k, v in config["facemodel_inputs"].items()}, seed=0)
+    if distributions:
+        dataset.metadata_input_distributions = {
+            name: fit_distribution(values, "exemplar")
+            for name, values in dataset.metadata_inputs.items()}
+    return dataset
+
+
+# -- the generator forward: the headline's method --------------------------------
+
+
+def bench_generator(size: int, device: torch.device, config: Optional[dict] = None,
+                    dtype: Optional[torch.dtype] = torch.bfloat16) -> HologanGenerator:
+    """The generator at ``size`` px with weights from a seeded
+    ``torch.Generator``.  ``config`` may narrow it (the trainer's
+    ``n_generator_features``, ``const_input_shape``, ``n_adain_mlp_units``,
+    ``n_adain_mlp_layers``); by default it has the reference's widths."""
+    config = config or {}
+    generator = HologanGenerator(
+        latent_dim=LATENT_DIM, output_shape=(size, size), dtype=dtype,
+        n_features_first=config.get("n_generator_features", 256),
+        const_shape=tuple(config.get("const_input_shape", (4, 4, 4, 512))),
+        n_adain_mlp_units=config.get("n_adain_mlp_units", 128),
+        n_adain_mlp_layers=config.get("n_adain_mlp_layers", 2))
+    initializers.initialize(generator, torch.Generator().manual_seed(0))
+    return generator.to(device).eval()
+
+
+def generator_inputs(batch: int):
+    """(z, poses) of the generator rows, float32 from numpy seed 0 in
+    bench.py's order."""
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(batch, LATENT_DIM)).astype(np.float32)
+    return z, poses(batch, rng)
+
+
+def forward_loop(generator, z: torch.Tensor, rot: torch.Tensor, n_iters: int):
+    """bench.py's loop body ``n_iters`` times, on the device: ``out =
+    G(z + i * 1e-6, rot)``, ``acc += sum(out in float32)``.  Returns (acc, the
+    last out); nothing waits for the device."""
+    acc = torch.zeros((), dtype=torch.float32, device=z.device)
+    out = None
+    for i in range(n_iters):
+        out = generator(z + i * 1e-6, rot)
+        acc = acc + out.float().sum()
+    return acc, out
+
+
+def _graph_run(generator, z, rot, n_iters: int, expected: tuple, label: str):
+    """The same loop captured once in a CUDA graph and replayed: one warm
+    replay, one timed replay ending at ``acc.item()``.  The launches are
+    counted at capture (a replay calls no wrapper).  Returns (seconds, the
+    capture's launches, acc)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # lazy handles and workspaces, on the capture stream
+        forward_loop(generator, z, rot, n_iters)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    zero_launch_counts()
+    with torch.cuda.graph(graph, stream=stream):
+        acc, _ = forward_loop(generator, z, rot, n_iters)
+    launches = check_launches(f"{label} (graph capture)", expected, z.device)
+    graph.replay()
+    acc.item()
+    t0 = time.perf_counter()
+    graph.replay()
+    value = acc.item()
+    seconds = time.perf_counter() - t0
+    del graph
+    return seconds, launches, value
+
+
+def generator_throughput(results: List[dict], metric: str, size: int, batch: int, n_iters: int,
+                         device=None, config: Optional[dict] = None) -> dict:
+    """img/s of the bf16 generator at ``size`` px over ``n_iters`` forwards
+    of ``batch`` (bench.py's method): z and the poses from numpy seed 0, one
+    warm run of the loop, then a timed run ending at ``acc.item()``; on the
+    card also the loop replayed as one CUDA graph (``graph_img_s``), the
+    counterpart of bench.py's single jitted ``fori_loop``."""
+    device = resolve_device(device)
+    generator = bench_generator(size, device, config)
+    z, rot = (torch.from_numpy(a).to(device) for a in generator_inputs(batch))
+    expected = scaled(n_iters, unit_launches("forward", size))
+    with torch.inference_mode():
+        forward_loop(generator, z, rot, n_iters)[0].item()  # builds kernels, constants, plans
+        start_window(device)
+        t0 = time.perf_counter()
+        acc, out = forward_loop(generator, z, rot, n_iters)
+        acc_value = acc.item()
+        seconds = time.perf_counter() - t0
+        launches = check_launches(metric, expected, device)
+        peak = peak_gb(device)
+        if out.shape != (batch, size, size, 3) or not math.isfinite(acc_value):
+            raise AssertionError(f"{metric}: images {tuple(out.shape)}, acc {acc_value}")
+        del out
+        graph_img_s = graph_launches = graph_acc = None
+        if device.type == "cuda":
+            graph_s, graph_launches, graph_acc = _graph_run(generator, z, rot, n_iters, expected,
+                                                            metric)
+            # the same work on the same inputs: every op on the path, the
+            # kernels' fixed-order reductions included, gives the same bits
+            if graph_acc != acc_value:
+                raise AssertionError(f"{metric}: the replayed graph gave acc {graph_acc}, "
+                                     f"the eager loop {acc_value}")
+            graph_img_s = n_iters * batch / graph_s
+    del generator
+    release(device)
+    return _emit(results, metric, n_iters * batch / seconds, "img/s", batch=batch, n_iters=n_iters,
+                 graph_img_s=graph_img_s, dtype="bfloat16", launches=launches,
+                 graph_launches=graph_launches, acc=acc_value, graph_acc=graph_acc,
+                 peak_memory_gb=peak, **device_fields(device))
+
+
+# -- the training rows -------------------------------------------------------------------
+
+
+def _metric_name_parts(cfg: dict, staged: bool):
+    """Metric-name suffix + row annotations shared by both train-step benches.
+
+    Non-default R1 head selection gets its own metric name so a --r1_heads
+    run can't silently replace the reference-semantics row — this applies
+    to stage 2 as much as stage 1 (r1_heads changes both steps' semantics)."""
+    suffix = "" if cfg["batch_size"] == 24 else f"_b{cfg['batch_size']}"
+    suffix += "_staged" if staged else ""
+    row_kwargs = {}
+    if cfg.get("r1_heads", "all") != "all":
+        suffix += f"_r1_{cfg['r1_heads']}"
+        row_kwargs["note"] = (
+            f"r1_heads={cfg['r1_heads']} (single-head R1, Mescheder-style) "
+            "instead of the reference's per-head penalty")
+    return suffix, row_kwargs
+
+
+def _timed_train_steps(model, dataset, n_iters: int, label: str):
+    """steps/s of ``n_iters`` train steps chained with no host sync after
+    one warm step, ending at ``.item()`` of the last step's ``g/loss_sum``.
+    Batches come through a BatchPrefetcher (host sampling and the copy on a
+    background thread, as ``train()`` runs), or with BENCH_STAGED=1 from
+    three batches staged on the device beforehand.  Returns (steps/s,
+    staged, launches, peak GB)."""
+    device = model.device
+    step = model._build_train_step()
+    expected = scaled(n_iters, unit_launches("train_step", model.config["output_shape"][0]))
+    staged = os.environ.get("BENCH_STAGED") == "1"
+
+    def chain(next_batch):
+        warm = step(next_batch())["g"]["loss_sum"].item()
+        if not math.isfinite(warm):
+            raise AssertionError(f"{label}: warm step loss {warm}")
+        start_window(device)
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            losses = step(next_batch())
+        loss = losses["g"]["loss_sum"].item()
+        seconds = time.perf_counter() - t0
+        launches = check_launches(label, expected, device)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label}: loss {loss}")
+        return n_iters / seconds, staged, launches, peak_gb(device)
+
+    if staged:
+        batches = [model._batch_to_device(model._sample_host_batch(dataset, dataset))
+                   for _ in range(3)]
+        return chain(itertools.cycle(batches).__next__)
+    with BatchPrefetcher(lambda: model._sample_host_batch(dataset, dataset), device=device) as pf:
+        return chain(pf.next)
+
+
+def _train_step_row(results, stage: str, model, cfg: dict, dtype_name: str, n_iters: int) -> dict:
+    dataset = fake_dataset(cfg)
+    rate, staged, launches, peak = _timed_train_steps(model, dataset, n_iters,
+                                                      f"{stage} {dtype_name}")
+    suffix, row_kwargs = _metric_name_parts(cfg, staged)
+    device = model.device
+    return _emit(results, f"{stage}_train_step_{dtype_name}{suffix}", rate, "steps/s",
+                 batch=cfg["batch_size"], imgs_per_sec=rate * cfg["batch_size"], n_iters=n_iters,
+                 dtype=dtype_name, tf32=tf32_on(device), launches=launches, peak_memory_gb=peak,
+                 **row_kwargs, **device_fields(device))
+
+
+def bench_stage1(results, dtype_name: str, n_iters: int = 10, config: dict = BENCH_CONFIG,
+                 device=None) -> dict:
+    cfg = dict(config, compute_dtype=dtype_name)
+    return _train_step_row(results, "stage1", ConfigNetFirstStage(cfg, device=device), cfg,
+                           dtype_name, n_iters)
+
+
+def bench_stage2(results, dtype_name: str, n_iters: int = 10, config: dict = BENCH_CONFIG,
+                 device=None) -> dict:
+    cfg = dict(config, compute_dtype=dtype_name)
+    return _train_step_row(results, "stage2", ConfigNet(cfg, device=device), cfg, dtype_name,
+                           n_iters)
+
+
+def bench_fine_tune(results, n_iters: int = 50, config: dict = BENCH_CONFIG, device=None) -> dict:
+    """iters/s of fine_tune_on_img on one seeded photo (the config's dtype:
+    float32 for BENCH_CONFIG): one warm iteration, then ``n_iters`` timed,
+    ending as the call returns the embeddings to the host."""
+    cfg = dict(config)
+    model = ConfigNet(cfg, device=device)
+    device = model.device
+    size = cfg["output_shape"][0]
+    img = np.random.default_rng(0).integers(0, 256, (size, size, 3), dtype=np.uint8)
+    model.fine_tune_on_img(img, n_iters=1)
+    start_window(device)
+    t0 = time.perf_counter()
+    model.fine_tune_on_img(img, n_iters=n_iters)
+    seconds = time.perf_counter() - t0
+    launches = check_launches("one_shot_fine_tune",
+                              scaled(n_iters, unit_launches("fine_tune_iteration", size)), device)
+    peak = peak_gb(device)
+    loss = float(model.fine_tune_losses[-1])
+    if not math.isfinite(loss):
+        raise AssertionError(f"one_shot_fine_tune: final loss {loss}")
+    del model
+    release(device)
+    rate = n_iters / seconds
+    return _emit(results, "one_shot_fine_tune", rate, "iters/s", total_s_for_50=50 / rate,
+                 n_iters=n_iters, dtype=cfg.get("compute_dtype") or "float32",
+                 tf32=tf32_on(device), launches=launches, peak_memory_gb=peak,
+                 final_loss=loss, **device_fields(device))
+
+
+def bench_serving(results, n_iters: int = 20, config: dict = BENCH_CONFIG, device=None,
+                  batch: int = SERVING_BATCH) -> dict:
+    """img/s of the serving pipeline: encode a uint8 photo batch, splice a
+    zero ``blendshape_values`` into the latents, render with the EMA
+    generator; ConfigNetServer's own building blocks as one bf16 call of
+    ``batch`` (no chunking), the photos staged on the device once.  Each
+    call ends at a host copy of one pixel.  On the card, CUDA events around
+    the encode and around the splice and generate split each call's stream
+    time (host gaps included) as ``encode_ms`` and ``generate_ms``."""
+    cfg = dict(config, compute_dtype="bfloat16")
+    model = ConfigNet(cfg, device=device)
+    device = model.device
+    size = cfg["output_shape"][0]
+    server = ConfigNetServer(model, chunk=batch, device=device)
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)).to(device)
+    param_name = "blendshape_values"
+    value = torch.zeros((1, cfg["facemodel_inputs"][param_name][0]), device=device)
+
+    events = []
+
+    def mark():
+        if device.type == "cuda":
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    def pipeline():
+        mark()
+        latents, rotations = server._encode(imgs)
+        mark()
+        out = server._generate(server._splice(latents, param_name, value), rotations)
+        mark()
+        return out
+
+    with torch.inference_mode():
+        pipeline()[0, 0, 0].cpu()
+        start_window(device)
+        events.clear()
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            out = pipeline()
+            out[0, 0, 0].cpu()
+        seconds = time.perf_counter() - t0
+    split = {"encode_ms": None, "generate_ms": None}
+    if events:
+        calls = [events[i:i + 3] for i in range(0, len(events), 3)]
+        split = {"encode_ms": sum(a.elapsed_time(b) for a, b, _ in calls) / n_iters,
+                 "generate_ms": sum(b.elapsed_time(c) for _, b, c in calls) / n_iters}
+    launches = check_launches("serving_encode_splice_generate",
+                              scaled(n_iters, unit_launches("forward", size)), device)
+    peak = peak_gb(device)
+    if out.shape != (batch, size, size, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"serving: renders {out.dtype} {tuple(out.shape)}")
+    del model, server, out
+    release(device)
+    return _emit(results, "serving_encode_splice_generate", batch * n_iters / seconds, "img/s",
+                 batch=batch, n_iters=n_iters, dtype="bfloat16", **split, launches=launches,
+                 peak_memory_gb=peak, **device_fields(device))
+
+
+def bench_generator_512(results, n_iters: int = GEN512_ITERS, config: Optional[dict] = None,
+                        device=None, batch: int = GEN512_BATCH) -> dict:
+    """512px generator forward throughput, the headline's method at
+    ``output_shape`` (512, 512) (the reference ships 256 and 512 models)."""
+    return generator_throughput(results, "generator_fwd_512_throughput", 512, batch, n_iters,
+                                device, config)
+
+
+class _Sink:
+    """An ``aml_run``: takes the loop's values in place of its matplotlib
+    loss plots (the card's machine has no matplotlib)."""
+
+    def log(self, name, value):
+        pass
+
+
+def bench_checkpointing(results, window: int = 40, period: int = 10, config: dict = BENCH_CONFIG,
+                        device=None, metric_samples: int = 64) -> List[dict]:
+    """Checkpoint cost through the real train loop.
+
+    One model runs three consecutive ``train()`` windows of ``window``
+    steps: checkpoint-free, checkpoints every ``period`` steps on the worker
+    thread, and inline (the reference's semantics), so the comparison
+    carries no cross-model noise.  ``period`` 10 is 50x denser than the
+    production cadence (500), so besides the dense-cadence rates this emits
+    the per-event stall and the projected overhead at a 500-step cadence.
+    A checkpoint renders the two panels and scores FID/KID on
+    ``metric_samples`` latents, and writes its files."""
+    cfg = dict(config, compute_dtype="bfloat16", image_checkpoint_period=10 ** 9,
+               metrics_checkpoint_period=10 ** 9, async_checkpointing=True,
+               loss_print_period=10 ** 9)
+    dataset = fake_dataset(cfg, distributions=True)
+    model = ConfigNetFirstStage(cfg, device=device)
+    device = model.device
+    size = cfg["output_shape"][0]
+    chunks = checkpoint_chunks(model, metric_samples)
+    sink = _Sink()
+    rates, events, window_launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = os.path.join(tmp, "logs")
+        # setup + warm-up + step 0 (and its checkpoint), untimed
+        model.train(dataset, dataset, tmp, logs, n_steps=1, n_samples_for_metrics=metric_samples,
+                    aml_run=sink)
+        next_start = 1
+        for label, p, async_flag in [("steady", 10 ** 9, True), ("async", period, True),
+                                     ("sync", period, False)]:
+            model.config["image_checkpoint_period"] = p
+            model.config["metrics_checkpoint_period"] = p
+            model.config["async_checkpointing"] = async_flag
+            end = next_start + window
+            events_before = model.checkpoint_events_run
+            start_window(device)
+            stats = model.train(dataset, dataset, tmp, logs, n_steps=end,
+                                n_samples_for_metrics=metric_samples, aml_run=sink)
+            next_start = end
+            rates[label] = stats["steps_run"] / stats["loop_seconds"]
+            # count the checkpoints that dispatched: never trust the schedule
+            events[label] = model.checkpoint_events_run - events_before
+            expected = sum(1 for s in range(end - stats["steps_run"], end) if s % p == 0)
+            if events[label] != expected:
+                raise RuntimeError(
+                    f"checkpoint window '{label}' dispatched {events[label]} checkpoint(s), "
+                    f"schedule says {expected} — the bench would be measuring nothing; "
+                    "refusing to emit rows")
+            launches = tuple(
+                s + c for s, c in zip(scaled(stats["steps_run"], unit_launches("train_step", size)),
+                                      scaled(events[label] * chunks,
+                                             unit_launches("forward", size))))
+            window_launches[label] = check_launches(f"train_loop_ckpt_{label}", launches, device)
+            _emit(results, f"train_loop_ckpt_{label}", rates[label], "steps/s",
+                  batch=cfg["batch_size"], n_steps=stats["steps_run"],
+                  checkpoint_events=events[label], dtype="bfloat16",
+                  launches=window_launches[label], peak_memory_gb=peak_gb(device),
+                  **device_fields(device))
+    del model
+    release(device)
+
+    steady = rates["steady"]
+    for label in ("async", "sync"):
+        n_ev = max(events[label], 1)
+        stall_s = max(0.0, (window / rates[label] - window / steady) / n_ev)
+        overhead_500 = 100.0 * stall_s / (500.0 / steady + stall_s)
+        # the window this row is derived from (with the steady one)
+        derived = dict(windows=["steady", label], launches=window_launches[label],
+                       **device_fields(device))
+        _emit(results, f"ckpt_stall_per_event_{label}", stall_s, "s",
+              note="extra wall per checkpoint event vs checkpoint-free window", **derived)
+        _emit(results, f"ckpt_overhead_at_500_{label}", overhead_500, "%",
+              note="projected steps/s loss at the production 500-step cadence", **derived)
+    return results
+
+
+# -- the command line -----------------------------------------------------------------
+
+
+def bench_config(args) -> dict:
+    """BENCH_CONFIG with the command line's overrides (a copy)."""
+    config = copy.deepcopy(BENCH_CONFIG)
+    if args.batch_size is not None:
+        config["batch_size"] = args.batch_size
+    if args.r1_heads is not None:
+        config["r1_heads"] = args.r1_heads
+    for override in args.set:
+        key, _, raw = override.partition("=")
+        try:
+            config[key] = json.loads(raw)
+        except json.JSONDecodeError:
+            config[key] = raw
+    return config
+
+
+def rows(args, config: dict, device) -> Dict[str, Any]:
+    """The rows by ``--only`` name, each a function of the results list."""
+    return {
+        "stage1_f32": lambda r: bench_stage1(r, "float32", args.iters, config, device),
+        "stage1_bf16": lambda r: bench_stage1(r, "bfloat16", args.iters, config, device),
+        "stage2_f32": lambda r: bench_stage2(r, "float32", args.iters, config, device),
+        "stage2_bf16": lambda r: bench_stage2(r, "bfloat16", args.iters, config, device),
+        "fine_tune": lambda r: bench_fine_tune(r, config=config, device=device),
+        "serving": lambda r: bench_serving(r, config=config, device=device),
+        "gen512": lambda r: bench_generator_512(r, config=config, device=device),
+        "checkpointing": lambda r: bench_checkpointing(r, config=config, device=device),
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default=None, help="comma list: " + ",".join(ROW_NAMES))
+    parser.add_argument("--iters", type=int, default=10, help="timed train steps a train row")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="override the train-step batch (default 24, the reference value)")
+    parser.add_argument("--r1_heads", default=None, choices=["all", "final"],
+                        help="override R1 penalty head selection")
+    parser.add_argument("--set", action="append", default=[],
+                        help="config override key=value (value parsed as JSON, falling back to "
+                        "string); repeatable")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default; fails without a card) or cpu")
+    parser.add_argument("--out", default=str(DEFAULT_OUT), help="where the rows are written")
+    args = parser.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else set(ROW_NAMES)
+    if only - set(ROW_NAMES):
+        parser.error(f"unknown rows {sorted(only - set(ROW_NAMES))}")
+    if args.device is None and not torch.cuda.is_available():
+        print("bench_train: no CUDA device; pass --device cpu to run on the CPU", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    turn_tf32_off()
+    config = bench_config(args)
+
+    results, failed = [], []
+    for name, fn in rows(args, config, device).items():
+        if name not in only:
+            continue
+        try:
+            fn(results)
+        except Exception as exc:  # report the row, run the others, fail at the end
+            traceback.print_exc()
+            failed.append(name)
+            row = {"metric": name, "error": f"{type(exc).__name__}: {exc}"[:300]}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+        finally:
+            release(device)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=2))
+    if failed:
+        print(f"bench_train: rows failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

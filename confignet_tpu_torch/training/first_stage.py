@@ -72,6 +72,10 @@ from confignet_tpu_torch.parallel.mesh import all_reduce_mean, process_slice, re
 from confignet_tpu_torch.runtime import gather_images, gather_rows
 from confignet_tpu_torch.training.state import ema_update, make_adam
 
+# generator batches: generate_images' and the fused FID/KID path's
+RENDER_CHUNK = 32
+METRIC_CHUNK = 64
+
 # The config schema: the same keys and semantics as the JAX package's
 # DEFAULT_CONFIG (and the reference's, confignet_first_stage.py:24-84), so
 # saved configs load unchanged.  ``facemodel_inputs`` maps each face-model
@@ -185,6 +189,14 @@ def _stack(values: List[Any]) -> Any:
     if isinstance(values[0], (tuple, list)):
         return tuple(np.stack(parts) for parts in zip(*values))
     return np.stack(values)
+
+
+def checkpoint_chunks(model: "ConfigNetFirstStage", n_samples_for_metrics: int) -> int:
+    """Generator forwards of one stage-1 checkpoint: the render panel and the
+    synthetic panel in batches of RENDER_CHUNK, and the metric latents in
+    batches of METRIC_CHUNK."""
+    panel = model.n_checkpoint_rotations * model.n_checkpoint_samples
+    return 2 * -(-panel // RENDER_CHUNK) + -(-n_samples_for_metrics // METRIC_CHUNK)
 
 
 class ConfigNetFirstStage:
@@ -1147,7 +1159,8 @@ class ConfigNetFirstStage:
         return self.synthetic_encoder
 
     @torch.inference_mode()
-    def generate_images(self, latent_vectors, rotations, batch_chunk: int = 32) -> np.ndarray:
+    def generate_images(self, latent_vectors, rotations,
+                        batch_chunk: int = RENDER_CHUNK) -> np.ndarray:
         """Inference-generator forward -> uint8 images, chunked at a fixed
         batch size (the tail padded by repeating its last row)."""
         latent_vectors = np.asarray(latent_vectors, np.float32)
@@ -1187,7 +1200,7 @@ class ConfigNetFirstStage:
 
     @torch.inference_mode()
     def _metric_features_for_latents(self, latent_vectors, rotations,
-                                     batch_chunk: int = 64) -> np.ndarray:
+                                     batch_chunk: int = METRIC_CHUNK) -> np.ndarray:
         """The fused path's features of the metric latents, chunked at a fixed
         batch size (the tail padded by repeating its last row)."""
         latent_vectors = np.asarray(latent_vectors, np.float32)

@@ -51,7 +51,8 @@ def test_importing_the_port_leaves_jax_unloaded():
     so the check runs in a fresh interpreter."""
     modules = _port_modules()
     assert {"confignet_tpu_torch.apps.train_confignet", "confignet_tpu_torch.data.prefetch",
-            "confignet_tpu_torch.core.async_checkpoint"} <= set(modules)
+            "confignet_tpu_torch.core.async_checkpoint", "confignet_tpu_torch.apps.bench",
+            "confignet_tpu_torch.apps.bench_train"} <= set(modules)
     code = ("import importlib, sys; [importlib.import_module(m) for m in %r]; import chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "print(bad); sys.exit(1 if bad else 0)" % (modules, FORBIDDEN + LAZY))
