@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out results.json] [--profile profile.txt]
     python3 chip_smoke.py --rotate-sweep sweep.json   (rotation tiles only)
     python3 chip_smoke.py --loops-only | --demo-only | --mesh-only | --512-only | --bench-only
-                                                     (step 13, 14, 15, 16 or 17 only)
+                          | --graphs-only            (step 13, 14, 15, 16, 17 or 18 only)
     python3 chip_smoke.py --first-step-probe probe.json  (the first-step bisect only)
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
@@ -65,10 +65,12 @@
    step of the kernel path and of the plain path, bounded as in step 7.
 9. Fine-tunes the full-width serving model (heads given weights) on one
    seeded photo with fine_tune_on_img: float32, then bfloat16, one warm call
-   of 1 iteration and a timed call of 50, each iteration with exactly 0
-   rotation, 0 transpose, 6 AdaIN-forward and 6 AdaIN-backward launches (the
-   fine-tune differentiates the rotations, so it resamples with the gather
-   form); a finite final loss, a fine-tuned generator unlike the EMA, the
+   of 2 iterations (which captures the iteration's CUDA graph) and a timed
+   call of 50 (one eager iteration, 49 replays), each iteration with exactly
+   0 rotation, 0 transpose, 6 AdaIN-forward and 6 AdaIN-backward launches,
+   counted at capture and added at each replay (the fine-tune
+   differentiates the rotations, so it resamples with the gather form); a
+   finite final loss, a fine-tuned generator unlike the EMA, the
    EMA unchanged, and ConfigNetServer.refresh() rendering with the
    fine-tuned weights.
 10. Fine-tunes along one trajectory (5 iterations of the plain path from the
@@ -219,7 +221,27 @@
    Each row holds its timed window's launches (zeroed just before, read just
    after) to its path's, and must give finite rates under the JAX bench's
    metric names; the step's time is printed.
-18. Prints the kernels' JSON record (launches per path, times on the
+18. The captured paths (core/graphs.py, the counterpart of jax.jit's
+   per-shape cache; on the card the paths of steps 4-17 run through it
+   too): each path the JAX package jits, held against the same call run
+   eagerly (graphs.eager()) bit for bit, at the widths above: the bf16
+   256px ConfigNetServer(chunk=32)'s encode and render_with_attribute of 64
+   photos, generate and sample (through a LatentGAN) of 256 latents; the
+   model's generate_images (chunk 32), fused FID features (chunk 64) and
+   encode_images (chunk 32); each first call (which captures) and a
+   replayed call, the replayed call with exactly its chunks' launches
+   (1, 0, 6, 0) a generator chunk, counted at capture and added at each
+   replay, then eager and graph timed in turns (img/s), with each capture's
+   time and the memory its graphs hold; fine_tune_on_img in float32 at
+   256px and 512px (the 512px AdaIN backward's co-resident launch captured
+   there): under deterministic algorithms two eager runs of 5 iterations
+   must agree bit for bit (every loss_sum, the final embeddings, rotations
+   and generator), and the captured run (one eager iteration, then
+   replays) must equal them, with (0, 0, 6, 6) / (0, 0, 7, 7) launches an
+   iteration; then 20 / 10 iterations (50 with --graphs-only) of each mode
+   timed in turns.  With --profile, a generate chunk and a 10-iteration
+   fine-tune, captured and eager (<stem>_graph_*.txt).
+19. Prints the kernels' JSON record (launches per path, times on the
    float32 train step's path and, as train_step_512, on the 512px step's),
    then as the last line {"ok": true, "device": {...}}.
 
@@ -232,6 +254,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import hashlib
 import itertools
 import json
@@ -243,6 +266,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -252,7 +276,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from confignet_tpu_torch.apps import bench, bench_train, confignet_demo
-from confignet_tpu_torch.core import pickles, reference_import
+from confignet_tpu_torch.core import graphs, pickles, reference_import
 from confignet_tpu_torch.core.device import card_line
 from confignet_tpu_torch.core.model_io import attempt_reloading_checkpoint, load_confignet
 from confignet_tpu_torch.data.dataset import NeuralRendererDataset
@@ -983,45 +1007,35 @@ def give_encoder_heads_weights(model, photos):
 
 def fine_tune_run(model, photo, label: str, card: str, kind: str, iters: int = FINE_TUNE_ITERS,
                   per_iteration=FINE_TUNE_ITER_LAUNCHES):
-    """One warm fine_tune_on_img call of 1 iteration, then a timed call of
-    ``iters``, each iteration with exactly ``per_iteration`` kernel launches
-    (the step is wrapped to count them).  The counters are
-    zeroed just before the timed call.  Checks a finite final loss, a
-    fine-tuned generator unlike the EMA, the EMA unchanged, and a server's
-    refresh() rendering with the fine-tuned weights.  Returns (the counters
-    after the timed call, the run's record)."""
+    """One warm fine_tune_on_img call of 2 iterations (the second a replay
+    of the iteration's CUDA graph, captured there), then a timed call of
+    ``iters``: one eager iteration and ``iters - 1`` replays.  The graph's
+    launches at capture, and the timed call's (counters zeroed just
+    before), must be ``per_iteration`` an iteration.  Checks a finite final
+    loss, a fine-tuned generator unlike the EMA, the EMA unchanged, and a
+    server's refresh() rendering with the fine-tuned weights.  Returns (the
+    counters after the timed call, the run's record)."""
     server = ConfigNetServer(model, chunk=1, device=model.device)  # snapshots the EMA generator
     ema_before = {k: v.clone() for k, v in model.generator_smoothed.state_dict().items()}
     t0 = time.perf_counter()
-    model.fine_tune_on_img(photo, n_iters=1)
+    model.fine_tune_on_img(photo, n_iters=2)
     warmup_s = time.perf_counter() - t0
+    captured = model._graphs.launches(model._fine_tune_graph_key(False, 1))
+    if captured != per_iteration:
+        raise AssertionError(f"fine-tune {label}: the captured iteration launches {captured}, "
+                             f"expected {per_iteration}")
 
-    key = (False, 1, None)  # the step cache's key: (force_neutral_expression, n_imgs, mesh)
-    step, per_iter = model._fine_tune_step_cache[key], []
-
-    def counted(*args):
-        before = launch_counts()
-        out = step(*args)
-        per_iter.append(tuple(a - b for a, b in zip(launch_counts(), before)))
-        return out
-
-    model._fine_tune_step_cache[key] = counted
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        embeddings, rotations = model.fine_tune_on_img(photo, n_iters=iters)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        model._fine_tune_step_cache[key] = step
+    embeddings, rotations = model.fine_tune_on_img(photo, n_iters=iters)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = launch_counts()
-    if per_iter != [per_iteration] * iters:
-        raise AssertionError(f"fine-tune {label}: launches {LAUNCH_NAMES} per iteration "
-                             f"{sorted(set(per_iter))}, expected {per_iteration}")
     if launches != tuple(iters * n for n in per_iteration):
-        raise AssertionError(f"fine-tune {label}: {launches} launches in the call")
+        raise AssertionError(f"fine-tune {label}: {launches} launches in the call, expected "
+                             f"{per_iteration} an iteration")
     final_loss = float(model.fine_tune_losses[-1])
     if (not np.isfinite(final_loss) or embeddings.shape != (1, model.config["latent_dim"])
             or rotations.shape != (1, 3)):
@@ -1042,7 +1056,7 @@ def fine_tune_run(model, photo, label: str, card: str, kind: str, iters: int = F
         raise AssertionError(f"fine-tune {label}: refresh() did not render the fine-tuned weights "
                              f"({refresh_diff})")
     rec = dict(run=label, iters=iters, seconds=seconds, iters_per_s=iters / seconds,
-               warmup_s=warmup_s,
+               warmup_s=warmup_s, captured_launches=dict(zip(LAUNCH_NAMES, captured)),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=dict(zip(LAUNCH_NAMES, launches)), final_loss=final_loss,
                refresh_vs_generate_images=refresh_diff)
@@ -3202,9 +3216,265 @@ def bench_path(card: str, kind: str, records: list) -> tuple:
     return launches, rec
 
 
-def profile(label: str, fn, path: str) -> None:
+# -- step 18: the captured paths ---------------------------------------------------------
+
+GRAPH_PHOTOS = 64  # encode, render_with_attribute, encode_images: 2 chunks of 32
+GRAPH_LATENTS = 256  # generate and sample: 8 chunks of 32; generate_images: 8; FID: 4 of 64
+GRAPH_TURNS = 2  # eager, graph, graph, eager: this many times for each path
+GRAPH_FINE_TUNE_CHECK_ITERS = 5  # the fine-tunes held bit for bit, eager twice then captured
+GRAPH_FINE_TUNE_ITERS = {256: 20, 512: 10}  # the timed fine-tunes (--graphs-only: 50)
+
+
+def _same(a, b) -> bool:
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def graph_against_eager(label: str, call, cache, unit: tuple, chunks: int, images: int,
+                        card: str, kind: str) -> dict:
+    """One path through its graph cache against the same call run eagerly
+    (graphs.eager()): the first call (which captures) and a replayed call
+    must give the eager call's bits, the replayed call exactly ``chunks``
+    times ``unit`` launches, and each graph captured by the path ``unit``
+    a replay.  Then both modes timed in turns (eager, graph, graph, eager,
+    GRAPH_TURNS times; img/s, host clock, each call ending on the host),
+    with the memory the capture held (reserved after empty_cache, before
+    and after the first call) and each mode's peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    with graphs.eager():
+        eager = call()
+    captures, capture_s = cache.captures, cache.capture_seconds
+    t0 = time.perf_counter()
+    first = call()
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    zero_launch_counts()
+    replayed = call()
+    launches = launch_counts()
+    recorded = sorted(set(cache.launches_by_name().values()))
+    if not (_same(first, eager) and _same(replayed, eager)):
+        raise AssertionError(f"graphs {label}: the captured path differs from the eager one")
+    if launches != tuple(chunks * n for n in unit) or (cache.active and recorded != [unit]):
+        raise AssertionError(f"graphs {label}: launches {launches} for {chunks} chunks, captured "
+                             f"{recorded}; expected {unit} a chunk")
+    rates, peaks = {"eager": [], "graph": []}, {}
+    for mode in ("eager", "graph", "graph", "eager") * GRAPH_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            call()
+            rates[mode].append(images / (time.perf_counter() - t0))
+        peaks[mode] = torch.cuda.max_memory_allocated() / 1e9
+    rec = dict(path=label, images=images, chunks=chunks, bit_equal=True,
+               launches=dict(zip(LAUNCH_NAMES, launches)), captured=cache.captures - captures,
+               capture_s=cache.capture_seconds - capture_s, first_call_s=first_s,
+               graph_pool_gb=held / 1e9, eager_img_s=rates["eager"], graph_img_s=rates["graph"],
+               eager_peak_gb=peaks["eager"], graph_peak_gb=peaks["graph"])
+    print(f"graphs {label}: bit-equal to eager; launches {launches}; {rec['captured']} graph(s) "
+          f"captured in {rec['capture_s'] * 1e3:.1f} ms (first call {first_s * 1e3:.1f} ms), pool "
+          f"{rec['graph_pool_gb']:.3f} GB; img/s eager {[round(r, 1) for r in rates['eager']]}, "
+          f"graph {[round(r, 1) for r in rates['graph']]}; peak GB eager {peaks['eager']:.2f}, "
+          f"graph {peaks['graph']:.2f} on {kind} ({card})", flush=True)
+    return rec
+
+
+def fine_tune_graph_run(model, photo, label: str, unit: tuple, iters: int, card: str,
+                        kind: str) -> dict:
+    """fine_tune_on_img captured against eager.  Under deterministic
+    algorithms two eager runs of GRAPH_FINE_TUNE_CHECK_ITERS iterations must
+    agree bit for bit (every iteration's loss_sum, the final embeddings and
+    rotations, the fine-tuned generator), then a captured run must equal
+    them, with ``unit`` launches an iteration through capture and replay;
+    then, with the default algorithms, a capture (its time and the memory
+    its pool holds) and ``iters`` iterations of each mode timed in turns
+    (eager, graph, graph, eager)."""
+    def run(n_iters):
+        embeddings, rotations = model.fine_tune_on_img(photo, n_iters=n_iters)
+        tuned = {k: v.cpu().numpy() for k, v in model._fine_tuned_generator_params.items()}
+        return [float(x) for x in model.fine_tune_losses], embeddings, rotations, tuned
+
+    def same(a, b):
+        return (a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                and not unequal_arrays(a[3], b[3]))
+
+    n = GRAPH_FINE_TUNE_CHECK_ITERS
+    expected = tuple(n * u for u in unit)
+    with deterministic_algorithms():
+        runs = []
+        for mode in ("eager", "eager", "graph"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                out, launches = counted(lambda: run(n), expected, f"graphs {label} ({mode})")
+            runs.append(out)
+        key = model._fine_tune_graph_key(False, 1)
+        captured = model._graphs.launches(key) if model._graphs.active else unit
+    if not same(runs[0], runs[1]):
+        raise AssertionError(f"graphs {label}: two eager fine-tunes from the same weights differ")
+    if not same(runs[2], runs[0]) or captured != unit:
+        raise AssertionError(f"graphs {label}: the captured fine-tune differs from the eager one "
+                             f"(losses {runs[2][0]} vs {runs[0][0]}; captured launches {captured})")
+    model._graphs.clear()  # a capture of its own, for its time and pool
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved, capture_s = torch.cuda.memory_reserved(), model._graphs.capture_seconds
+    run(2)
+    capture_s = model._graphs.capture_seconds - capture_s
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    rates = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            run(iters)
+            rates[mode].append(iters / (time.perf_counter() - t0))
+    model._fine_tuned_generator_params = None
+    rec = dict(path=label, bit_equal=True, check_iters=n, iters=iters,
+               launches=dict(zip(LAUNCH_NAMES, launches)), capture_s=capture_s,
+               graph_pool_gb=held / 1e9, eager_iters_s=rates["eager"],
+               graph_iters_s=rates["graph"])
+    print(f"graphs {label}: {n} iterations bit-equal to eager (two eager runs bit-equal), launches "
+          f"{launches}; captured in {capture_s * 1e3:.1f} ms, pool {held / 1e9:.3f} GB; {iters} "
+          f"iterations, iters/s eager "
+          f"{[round(r, 2) for r in rates['eager']]}, graph {[round(r, 2) for r in rates['graph']]} "
+          f"on {kind} ({card})", flush=True)
+    return rec
+
+
+def graph_key_costs(server, model, photos, blend, latents, rotations, card: str,
+                    kind: str) -> dict:
+    """The host time a chunk spends building its graph key (the modules'
+    parameters and buffers walked for their addresses), in microseconds, for
+    the server's generate and render_with_attribute chunks and a fused FID
+    chunk: the mean of 200 builds."""
+    def chunk(a, n=SERVE_CHUNK):
+        return torch.from_numpy(np.ascontiguousarray(a[:n]))
+
+    extractor = model._inception_metric_object.inception_feature_extractor
+    builds = {
+        "generate": lambda: server._graphs.key(
+            "generate", (server._generator,), (chunk(latents), chunk(rotations))),
+        "render_with_attribute": lambda: server._graphs.key(
+            ("render_with_attribute", "blendshape_values"),
+            (server._encoder, server._synthetic_encoder, server._generator),
+            (chunk(photos), torch.from_numpy(blend))),
+        "metric_features": lambda: model._graphs.key(
+            "metric_features", (model._inference_generator(), extractor.module),
+            (chunk(latents, METRIC_CHUNK), chunk(rotations, METRIC_CHUNK))),
+    }
+    costs = {}
+    for label, build in builds.items():
+        build()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            build()
+        costs[label] = (time.perf_counter() - t0) / 200 * 1e6
+    print(f"graphs key construction, microseconds a chunk: "
+          f"{ {k: round(v, 1) for k, v in costs.items()} } on {kind} ({card})", flush=True)
+    return costs
+
+
+def graphs_path(card: str, kind: str, profile_stem=None) -> tuple:
+    """Step 18: every path the JAX package jits, through the port's graph
+    caches (core/graphs.py), held against its eager run bit for bit, its
+    launches counted through capture and replay, timed in turns: the bf16
+    256px server's encode, generate, render_with_attribute and sample
+    (chunk 32); the model's generate_images (32), fused FID features (64)
+    and encode_images (32); fine_tune_on_img in float32 at 256px and 512px
+    (the 512px backward on the co-resident route, captured).  With
+    ``profile_stem``, a warm generate chunk and a 10-iteration fine-tune,
+    each captured and eager (<stem>_graph_*.txt).  Returns (the launches of
+    the captured runs: each path's replayed call and captured fine-tune,
+    summed; the record)."""
+    t_step = time.perf_counter()
+    rng = np.random.default_rng(18)
+    model = ConfigNet(serving_config("bfloat16"))
+    size = model.config["output_shape"][0]
+    photos = rng.integers(0, 256, (GRAPH_PHOTOS, size, size, 3), dtype=np.uint8)
+    give_encoder_heads_weights(model, photos[:SERVE_CHUNK])
+    server = ConfigNetServer(model, LatentGAN({"latent_dim": model.config["latent_dim"]}),
+                             chunk=SERVE_CHUNK)
+    n_blend = model.config["facemodel_inputs"]["blendshape_values"][0]
+    blend = rng.uniform(0, 1, size=(1, n_blend)).astype(np.float32)
+    latents = rng.normal(size=(GRAPH_LATENTS, model.config["latent_dim"])).astype(np.float32)
+    rotations = poses(GRAPH_LATENTS, rng)
+    model._inception_metric_object = types.SimpleNamespace(
+        inception_feature_extractor=InceptionFeatureExtractor((size, size, 3)))
+
+    def sample():
+        np.random.seed(18)
+        return server.sample(GRAPH_LATENTS, rotations=rotations, truncation=0.7)
+
+    none = (0, 0, 0, 0)
+    paths = [
+        ("encode", lambda: server.encode(photos), server._graphs, none,
+         GRAPH_PHOTOS // SERVE_CHUNK, GRAPH_PHOTOS),
+        ("generate", lambda: server.generate(latents, rotations), server._graphs, CHUNK_LAUNCHES,
+         GRAPH_LATENTS // SERVE_CHUNK, GRAPH_LATENTS),
+        ("render_with_attribute", lambda: server.render_with_attribute(
+            photos, "blendshape_values", blend), server._graphs, CHUNK_LAUNCHES,
+         GRAPH_PHOTOS // SERVE_CHUNK, GRAPH_PHOTOS),
+        ("sample", sample, server._graphs, CHUNK_LAUNCHES, GRAPH_LATENTS // SERVE_CHUNK,
+         GRAPH_LATENTS),
+        ("generate_images", lambda: model.generate_images(latents, rotations), model._graphs,
+         CHUNK_LAUNCHES, GRAPH_LATENTS // RENDER_CHUNK, GRAPH_LATENTS),
+        ("metric_features", lambda: model._metric_features_for_latents(latents, rotations),
+         model._graphs, CHUNK_LAUNCHES, GRAPH_LATENTS // METRIC_CHUNK, GRAPH_LATENTS),
+        ("encode_images", lambda: model.encode_images(photos), model._graphs, none,
+         GRAPH_PHOTOS // RENDER_CHUNK, GRAPH_PHOTOS),
+    ]
+    rec = {"paths": []}
+    for label, call, cache, unit, chunks, images in paths:
+        cache.clear()  # each path's graphs alone in its cache, so its pool is its own
+        rec["paths"].append(graph_against_eager(label, call, cache, unit, chunks, images, card,
+                                                kind))
+    rec["key_us"] = graph_key_costs(server, model, photos, blend, latents, rotations, card, kind)
+    if profile_stem:
+        chunk = (latents[:SERVE_CHUNK], rotations[:SERVE_CHUNK])
+        for mode in ("graph", "eager"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                rec[f"profile_generate_{mode}"] = profile(
+                    f"generate chunk {SERVE_CHUNK} ({mode})", lambda: server.generate(*chunk),
+                    f"{profile_stem}_graph_generate_{mode}.txt")
+    del server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for size, config, unit in ((256, serving_config("float32"), FINE_TUNE_ITER_LAUNCHES),
+                               (SIZE_512, at_512(serving_config("float32")),
+                                FINE_TUNE_ITER_LAUNCHES_512)):
+        model = ConfigNet(config)
+        side = model.config["output_shape"][0]
+        photo = np.random.default_rng(size).integers(0, 256, (side, side, 3), dtype=np.uint8)
+        give_encoder_heads_weights(model, photo[np.newaxis])
+        rec["paths"].append(fine_tune_graph_run(model, photo, f"fine_tune_on_img {size}px float32",
+                                                unit, GRAPH_FINE_TUNE_ITERS[size], card, kind))
+        if profile_stem and size == 256:
+            for mode in ("graph", "eager"):
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    rec[f"profile_fine_tune_{mode}"] = profile(
+                        f"fine-tune 10 iterations ({mode})",
+                        lambda: model.fine_tune_on_img(photo, n_iters=10),
+                        f"{profile_stem}_graph_fine_tune_{mode}.txt")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the captured runs' launches: each check zeroes the counters before its own
+    launches = tuple(sum(r["launches"][name] for r in rec["paths"]) for name in LAUNCH_NAMES)
+    rec["seconds"] = time.perf_counter() - t_step
+    print(f"graphs: step 18 took {rec['seconds']:.1f} s; launches of the captured runs "
+          f"{launches}", flush=True)
+    return launches, rec
+
+
+def profile(label: str, fn, path: str) -> dict:
     """Device time of one warm call of ``fn``, by kernel name
-    (torch.profiler), beside its host wall time."""
+    (torch.profiler), beside its host wall time; returns the totals."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -3226,11 +3496,12 @@ def profile(label: str, fn, path: str) -> None:
     Path(path).write_text(f"{label}: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms\n"
                           f"{table}\n\nby input shape:\n{by_shape}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    n_ops = sum(e.count for e in events)
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
-          f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops",
-          flush=True)
+          f"({100 * device_ms / wall_ms:.1f}%), {n_ops} device ops", flush=True)
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy=device_ms / wall_ms, device_ops=n_ops)
 
 
 def main() -> int:
@@ -3259,6 +3530,10 @@ def main() -> int:
     parser.add_argument("--bench-only", action="store_true",
                         help="only build the kernels and run step 17, the bench rows, then stop "
                         "(no kernels line and no result line)")
+    parser.add_argument("--graphs-only", action="store_true",
+                        help="only build the kernels and run step 18, the captured paths, at the "
+                        "measurement's counts (50 fine-tune iterations at 256px and 512px, three "
+                        "turns), then stop (no kernels line and no result line)")
     parser.add_argument("--first-step-probe", metavar="PATH",
                         help="only build the kernels, run three float32 stage-2 steps from the same "
                         "weights with every op digested, write where the first differs to PATH "
@@ -3325,6 +3600,17 @@ def main() -> int:
                                                   "launches": launches_512, "path_512": rec_512},
                                                  indent=1))
         print(f"total {time.perf_counter() - t_start:.1f} s (step 16 only)")
+        return 0
+    if args.graphs_only:
+        global GRAPH_TURNS
+        GRAPH_TURNS = 3
+        GRAPH_FINE_TUNE_ITERS.update({256: 50, 512: 50})
+        _, graph_rec = graphs_path(card, kind, profile_stem)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "kind": kind, "graphs": graph_rec},
+                                                 indent=1))
+        print(f"total {time.perf_counter() - t_start:.1f} s (step 18 only)")
         return 0
     if args.bench_only:
         records = []
@@ -3548,7 +3834,11 @@ def main() -> int:
     path_launches["bench"], bench_rec = bench_path(card, kind, records)
     torch.cuda.empty_cache()
 
-    # -- 18. records -----------------------------------------------------------------
+    # -- 18. the captured paths: every jitted path of the JAX package against its eager run --
+    path_launches["graphs"], graph_rec = graphs_path(card, kind, profile_stem)
+    torch.cuda.empty_cache()
+
+    # -- 19. records -----------------------------------------------------------------
     sites_256 = {site(*s) for s in ADAIN_SITES_256}
     sites_512 = sites_256 | {site(*ADAIN_SITE_512)}
 
@@ -3623,7 +3913,8 @@ def main() -> int:
                "demo_512": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"},
                "fine_tune_512": {"adain_cuda", "adain_backward_cuda"},
                "train_512": {item["name"] for item in kernels},
-               "bench": {item["name"] for item in kernels}}
+               "bench": {item["name"] for item in kernels},
+               "graphs": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]
@@ -3638,7 +3929,7 @@ def main() -> int:
              "train_stage2": [train2_f32, train2_bf16], "train_stage2_paths": train2_paths,
              "fine_tune": [fine_tune_f32, fine_tune_bf16], "fine_tune_paths": fine_tune_paths,
              "sampling": sampling, "evaluation": evaluation, "loops": loops, "demo": demo,
-             "mesh": mesh, "path_512": rec_512, "bench": bench_rec,
+             "mesh": mesh, "path_512": rec_512, "bench": bench_rec, "graphs": graph_rec,
              "kernels": kernels, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -13,8 +13,9 @@ device; one warm run, then a timed run that ends at the sum's ``.item()``.
 ``graph_img_s`` is the same loop captured once in a CUDA graph and replayed,
 with no host dispatch inside (as bench.py's one jitted ``fori_loop``).
 Every forward must launch the rotation kernel once and the AdaIN kernel six
-times (counted at capture for the graph).  Prints one JSON line, with the
-card's name and power limit and the peak memory; TF32 is off.  Without a
+times (for the graph: the launches made into its capture, counted at its
+replay).  Prints one JSON line, with the card's name and power limit and the
+peak memory; TF32 is off.  Without a
 card, and without ``--device cpu``, it exits 2.
 """
 from __future__ import annotations

@@ -19,10 +19,13 @@ serving, gen512, checkpointing``:
   (the metric then ends in ``_staged``).  ``_b<N>`` marks a batch other than
   24 and ``_r1_final`` the single-head R1 penalty.
 - ``one_shot_fine_tune``: iters/s of ``ConfigNet.fine_tune_on_img`` on one
-  photo (f32; one warm iteration, then 50 timed).
+  photo (f32; one warm call of 2 iterations, then a call of 50 timed, on the
+  card one eager iteration and 49 replays of its captured graph).
 - ``serving_encode_splice_generate``: img/s of ``ConfigNetServer``'s encode,
   ``blendshape_values`` splice and generate as one batch-128 bf16 call on
-  uint8 photos staged on the device once.
+  uint8 photos staged on the device once: eager, and replayed through the
+  server's graph cache (``graph_img_s``; its renders must equal the eager
+  call's bit for bit).
 - ``generator_fwd_512_throughput``: img/s of the 512px bf16 generator at
   batch 64, the headline's method (``apps/bench.py``): eager, and replayed
   as one CUDA graph (``graph_img_s``).
@@ -63,8 +66,8 @@ import torch
 
 from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.device import card_line, resolve_device
+from confignet_tpu_torch.core.graphs import GraphCache
 from confignet_tpu_torch.data.distributions import fit_distribution
-from confignet_tpu_torch.data.fake import FakeDataset
 from confignet_tpu_torch.data.prefetch import BatchPrefetcher
 from confignet_tpu_torch.models.generator import HologanGenerator
 from confignet_tpu_torch.ops.launches import (LAUNCH_NAMES, launch_counts, scaled, unit_launches,
@@ -165,12 +168,38 @@ def poses(batch: int, rng) -> np.ndarray:
     return rot
 
 
-def fake_dataset(config: dict, distributions: bool = False) -> FakeDataset:
-    """64 fake images at the config's size; with ``distributions`` also
-    exemplar distributions of the metadata, which ``train()`` stores in its
-    checkpoints."""
-    dataset = FakeDataset(64, config["output_shape"][0],
-                          {k: v[0] for k, v in config["facemodel_inputs"].items()}, seed=0)
+LEFT_EYE = "bone_rotations:left_eye"
+
+
+class BenchDataset:
+    """The root bench_train.py's training set: the draws of its
+    ``tests/helpers.FakeDataset``, in their order, from numpy's
+    ``default_rng(seed)``: uint8 images, eye masks, one Gaussian array per
+    face-model input, rotations uniform in +-0.2 rad on all three axes and
+    32-dim stand-in Inception features (which the trainer recomputes, as
+    the JAX trainer does)."""
+
+    def __init__(self, n_images: int, img_size: int, facemodel_dims: dict, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.imgs = rng.integers(0, 256, size=(n_images, img_size, img_size, 3), dtype=np.uint8)
+        self.eye_masks = (rng.random((n_images, img_size, img_size)) > 0.95).astype(np.uint8)
+        self.metadata_inputs = {name: rng.normal(size=(n_images, dim)).astype(np.float32)
+                                for name, dim in facemodel_dims.items()}
+        self.metadata_inputs["rotations"] = rng.uniform(-0.2, 0.2, size=(n_images, 3)).astype(
+            np.float32)
+        self.inception_features = rng.normal(size=(n_images, 32)).astype(np.float32)
+
+
+def fake_dataset(config: dict, distributions: bool = False) -> BenchDataset:
+    """64 fake images at the config's size, as the root bench_train.py's
+    ``_fake_dataset`` draws them at seed 0: the left eye's input is taken out
+    of the drawn dims and copied from the first two rotation axes.  With
+    ``distributions`` also exemplar distributions of the metadata, which
+    ``train()`` stores in its checkpoints."""
+    dims = {k: v[0] for k, v in config["facemodel_inputs"].items() if k != LEFT_EYE}
+    dataset = BenchDataset(64, config["output_shape"][0], dims, seed=0)
+    if LEFT_EYE in config["facemodel_inputs"]:
+        dataset.metadata_inputs[LEFT_EYE] = dataset.metadata_inputs["rotations"][:, :2].copy()
     if distributions:
         dataset.metadata_input_distributions = {
             name: fit_distribution(values, "exemplar")
@@ -218,32 +247,6 @@ def forward_loop(generator, z: torch.Tensor, rot: torch.Tensor, n_iters: int):
     return acc, out
 
 
-def _graph_run(generator, z, rot, n_iters: int, expected: tuple, label: str):
-    """The same loop captured once in a CUDA graph and replayed: one warm
-    replay, one timed replay ending at ``acc.item()``.  The launches are
-    counted at capture (a replay calls no wrapper).  Returns (seconds, the
-    capture's launches, acc)."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):  # lazy handles and workspaces, on the capture stream
-        forward_loop(generator, z, rot, n_iters)
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    zero_launch_counts()
-    with torch.cuda.graph(graph, stream=stream):
-        acc, _ = forward_loop(generator, z, rot, n_iters)
-    launches = check_launches(f"{label} (graph capture)", expected, z.device)
-    graph.replay()
-    acc.item()
-    t0 = time.perf_counter()
-    graph.replay()
-    value = acc.item()
-    seconds = time.perf_counter() - t0
-    del graph
-    return seconds, launches, value
-
-
 def generator_throughput(results: List[dict], metric: str, size: int, batch: int, n_iters: int,
                          device=None, config: Optional[dict] = None) -> dict:
     """img/s of the bf16 generator at ``size`` px over ``n_iters`` forwards
@@ -269,8 +272,23 @@ def generator_throughput(results: List[dict], metric: str, size: int, batch: int
         del out
         graph_img_s = graph_launches = graph_acc = None
         if device.type == "cuda":
-            graph_s, graph_launches, graph_acc = _graph_run(generator, z, rot, n_iters, expected,
-                                                            metric)
+            # the loop captured once (a warm call that captures, then a
+            # warm replay) and one timed replay ending at acc.item()
+            cache = GraphCache(device)
+
+            def loop():
+                return cache.run(("loop", n_iters),
+                                 lambda z, rot: forward_loop(generator, z, rot, n_iters)[0],
+                                 (z, rot), (generator,))
+
+            loop()
+            loop().item()
+            start_window(device)
+            t0 = time.perf_counter()
+            graph_acc = loop().item()
+            graph_s = time.perf_counter() - t0
+            graph_launches = check_launches(f"{metric} (graph)", expected, device)
+            del cache
             # the same work on the same inputs: every op on the path, the
             # kernels' fixed-order reductions included, gives the same bits
             if graph_acc != acc_value:
@@ -368,14 +386,16 @@ def bench_stage2(results, dtype_name: str, n_iters: int = 10, config: dict = BEN
 
 def bench_fine_tune(results, n_iters: int = 50, config: dict = BENCH_CONFIG, device=None) -> dict:
     """iters/s of fine_tune_on_img on one seeded photo (the config's dtype:
-    float32 for BENCH_CONFIG): one warm iteration, then ``n_iters`` timed,
-    ending as the call returns the embeddings to the host."""
+    float32 for BENCH_CONFIG): one warm call of 2 iterations (on the card it
+    captures the iteration's CUDA graph), then a call of ``n_iters`` timed,
+    its first iteration eager and the others replays, ending as the call
+    returns the embeddings to the host."""
     cfg = dict(config)
     model = ConfigNet(cfg, device=device)
     device = model.device
     size = cfg["output_shape"][0]
     img = np.random.default_rng(0).integers(0, 256, (size, size, 3), dtype=np.uint8)
-    model.fine_tune_on_img(img, n_iters=1)
+    model.fine_tune_on_img(img, n_iters=2)
     start_window(device)
     t0 = time.perf_counter()
     model.fine_tune_on_img(img, n_iters=n_iters)
@@ -443,16 +463,51 @@ def bench_serving(results, n_iters: int = 20, config: dict = BENCH_CONFIG, devic
         calls = [events[i:i + 3] for i in range(0, len(events), 3)]
         split = {"encode_ms": sum(a.elapsed_time(b) for a, b, _ in calls) / n_iters,
                  "generate_ms": sum(b.elapsed_time(c) for _, b, c in calls) / n_iters}
-    launches = check_launches("serving_encode_splice_generate",
-                              scaled(n_iters, unit_launches("forward", size)), device)
+    expected = scaled(n_iters, unit_launches("forward", size))
+    launches = check_launches("serving_encode_splice_generate", expected, device)
     peak = peak_gb(device)
     if out.shape != (batch, size, size, 3) or out.dtype != torch.uint8:
         raise AssertionError(f"serving: renders {out.dtype} {tuple(out.shape)}")
+    graph_img_s = graph_launches = None
+    if device.type == "cuda":
+        graph_s, graph_launches, graph_out = _serving_graph_run(server, imgs, value, param_name,
+                                                                n_iters, expected)
+        # the same call on the same inputs: the replay gives the eager renders' bits
+        if not torch.equal(graph_out, out):
+            raise AssertionError("serving: the replayed graph's renders differ from the eager "
+                                 "call's")
+        graph_img_s = batch * n_iters / graph_s
     del model, server, out
     release(device)
     return _emit(results, "serving_encode_splice_generate", batch * n_iters / seconds, "img/s",
-                 batch=batch, n_iters=n_iters, dtype="bfloat16", **split, launches=launches,
-                 peak_memory_gb=peak, **device_fields(device))
+                 batch=batch, n_iters=n_iters, graph_img_s=graph_img_s, dtype="bfloat16", **split,
+                 launches=launches, graph_launches=graph_launches, peak_memory_gb=peak,
+                 **device_fields(device))
+
+
+def _serving_graph_run(server, imgs, value, param_name: str, n_iters: int, expected: tuple):
+    """The serving row's call through the server's graph cache: one call
+    that captures, then ``n_iters`` replays, each ending at a host copy of
+    one pixel.  Returns (seconds, the replays' launches, the last renders)."""
+    modules = (server._encoder, server._synthetic_encoder, server._generator)
+
+    def render(imgs, value):
+        latents, rotations = server._encode(imgs)
+        return server._generate(server._splice(latents, param_name, value), rotations)
+
+    def call():
+        return server._graphs.run(("bench_serving", param_name), render, (imgs, value), modules)
+
+    with torch.inference_mode():
+        call()[0, 0, 0].cpu()
+        start_window(imgs.device)
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            out = call()
+            out[0, 0, 0].cpu()
+        seconds = time.perf_counter() - t0
+        launches = check_launches("serving_encode_splice_generate (graph)", expected, imgs.device)
+        return seconds, launches, out.clone()
 
 
 def bench_generator_512(results, n_iters: int = GEN512_ITERS, config: Optional[dict] = None,

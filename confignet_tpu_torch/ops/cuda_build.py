@@ -10,6 +10,7 @@ script compile every kernel up front, one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -90,8 +93,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# while a graph captures (core/graphs.py): the capture stream's handle and
+# the launches made into it, which are the graph's, not the counters'
+_recording = None
+
+
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the count of its kernel's launches
-    (atomic across threads)."""
+    (atomic across threads).  A launch into a stream that
+    :func:`recording_launches` watches is captured, not run: it goes to
+    that record instead, and each replay of the graph adds it."""
     with _lock:
-        wrapper.launches += 1
+        if _recording is not None and torch.cuda.current_stream().cuda_stream == _recording[0]:
+            _recording[1][wrapper] = _recording[1].get(wrapper, 0) + 1
+        else:
+            wrapper.launches += 1
+
+
+def add_launches(wrapper, n: int) -> None:
+    """Add ``n`` to ``wrapper.launches``: a replayed graph's launches of its
+    kernel."""
+    with _lock:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def recording_launches(stream: int):
+    """While open, the wrappers' launches into the CUDA stream ``stream``
+    (``torch.cuda.Stream.cuda_stream``) are counted in the yielded dict,
+    by wrapper, and not in their counters; launches into other streams, from
+    other threads, count as ever.  One capture at a time."""
+    global _recording
+    counts: Dict = {}
+    with _lock:
+        if _recording is not None:
+            raise RuntimeError("a graph capture is already recording launches")
+        _recording = (stream, counts)
+    try:
+        yield counts
+    finally:
+        with _lock:
+            _recording = None

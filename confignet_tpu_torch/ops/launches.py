@@ -5,10 +5,13 @@ Each wrapper adds one to its ``launches`` where it launches its kernel and
 nowhere else (``cuda_build.count_launch``); on a CPU tensor it takes its
 plain version and counts nothing.  A caller zeroes the counters before a
 window of work and holds them to the window's units after it, so a window
-that took the plain path on the card shows.
+that took the plain path on the card shows.  A replayed CUDA graph
+(``core/graphs.py``) calls no wrapper: the launches counted when it was
+captured are added at each replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
+from confignet_tpu_torch.ops import cuda_build
 from confignet_tpu_torch.ops.adain_cuda import fused_adain_backward, fused_adain_forward
 from confignet_tpu_torch.ops.rotate_cuda import rotate_3d_grid_forward, rotate_3d_grid_transpose
 
@@ -21,6 +24,20 @@ ADAIN_SITES = {128: 5, 256: 6, 512: 7}
 
 def launch_counts() -> tuple:
     return tuple(w.launches for w in KERNEL_WRAPPERS)
+
+
+def recorded_launches(counts: dict) -> tuple:
+    """A capture's launches by wrapper (``cuda_build.recording_launches``) as
+    a tuple in ``LAUNCH_NAMES`` order."""
+    return tuple(counts.get(w, 0) for w in KERNEL_WRAPPERS)
+
+
+def add_launches(counts: tuple) -> None:
+    """Add a tuple of launches, in ``LAUNCH_NAMES`` order, to the four
+    counters: what one replay of a captured graph launched."""
+    for wrapper, n in zip(KERNEL_WRAPPERS, counts):
+        if n:
+            cuda_build.add_launches(wrapper, n)
 
 
 def zero_launch_counts() -> None:

@@ -4,8 +4,11 @@
 uint8 photos in, uint8 renders out; the attribute splice happens on the
 device between the encoder and the generator, and the uint8 conversion of
 the renders is done on the device too, so only 1 byte per pixel crosses back
-to the host.  Over a data-parallel mesh (``parallel/mesh.py``) each rank
-renders its rows of every chunk and the chunk is gathered back on every rank.
+to the host.  On the card each chunk runs as one captured CUDA graph per
+call shape (``core/graphs.py``), as each chunk of the JAX server runs as one
+jitted program.  Over a data-parallel mesh (``parallel/mesh.py``) each rank
+renders its rows of every chunk through its graph and the chunk is gathered
+back on every rank; the scatter and the gather stay outside the graph.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.core.graphs import GraphCache
 from confignet_tpu_torch.parallel.mesh import all_gather_rows, replicate, shard_batch
 
 
@@ -34,7 +38,9 @@ class ConfigNetServer:
     ``mesh``: a data-parallel mesh (one process per card, each building the
     server alike and making the same calls); the snapshot takes rank 0's
     weights, each rank renders its rows of every chunk, and every rank
-    returns the full result.  The server runs on the mesh's device.
+    returns the full result.  The server runs on the mesh's device.  On the
+    card each chunk (over a mesh, each rank's rows of it) is a replayed CUDA
+    graph.
     """
 
     def __init__(self, confignet, latent_gan=None, chunk: int = 32,
@@ -51,12 +57,14 @@ class ConfigNetServer:
                 raise ValueError("a server over a mesh runs on the mesh's device; pass no device")
             device = mesh.device
         self.device = resolve_device(device)
+        self._graphs = GraphCache(self.device)
         self.refresh()
 
     def refresh(self) -> None:
         """Re-snapshot the wrapped model's current weights (e.g. after
-        further training or a fine-tune)."""
+        further training or a fine-tune); the graphs of the old snapshot go."""
         model = self.confignet
+        self._graphs.clear()
 
         def snap(module):
             module = copy.deepcopy(module).to(self.device).eval()
@@ -89,11 +97,16 @@ class ConfigNetServer:
     # -- public API ------------------------------------------------------
 
     @torch.inference_mode()
-    def _chunked(self, fn: Callable, arrays: Sequence[np.ndarray], extra=()):
+    def _chunked(self, key, fn: Callable, arrays: Sequence[np.ndarray], extra=(),
+                 modules: Sequence[torch.nn.Module] = ()):
         """Pad the leading axis to ``chunk``, run ``fn`` per chunk on the
         device, strip the padding.  ``extra`` tensors pass through whole.
-        Over a mesh, ``fn`` runs on this rank's rows of each chunk and its
-        outputs are gathered from every rank."""
+        Each chunk is a replay of the graph of ``key`` (the pipeline's name
+        and every Python value ``fn`` closes over, as the JAX server's jit
+        cache is keyed) over ``modules``, the modules ``fn`` reads; its
+        outputs go to the host before the next replay.  Over a mesh, ``fn``
+        (the graph) runs on this rank's rows of each chunk, and its outputs
+        are gathered from every rank outside it."""
         n = arrays[0].shape[0]
         outs = []
         for start in range(0, n, self.chunk):
@@ -104,18 +117,12 @@ class ConfigNetServer:
                 if pad:
                     piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
                 piece = np.ascontiguousarray(piece)
-                pieces.append(torch.from_numpy(piece).to(self.device) if self.mesh is None
+                pieces.append(torch.from_numpy(piece) if self.mesh is None
                               else shard_batch(self.mesh, piece))
-            out = fn(*pieces, *extra)
-            outs.append(tuple(all_gather_rows(self.mesh, o)
+            out = self._graphs.run(key, fn, pieces + list(extra), modules)
+            outs.append(tuple(_host(all_gather_rows(self.mesh, o))
                               for o in (out if isinstance(out, tuple) else (out,))))
-
-        def cat(i):
-            host = [o[i].float().cpu().numpy() if o[i].is_floating_point() else o[i].cpu().numpy()
-                    for o in outs]
-            return np.concatenate(host)[:n]
-
-        result = tuple(cat(i) for i in range(len(outs[0])))
+        result = tuple(np.concatenate([o[i] for o in outs])[:n] for i in range(len(outs[0])))
         return result if len(result) > 1 else result[0]
 
     def encode(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -123,12 +130,13 @@ class ConfigNetServer:
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[np.newaxis]
-        return self._chunked(self._encode, [images])
+        return self._chunked("encode", self._encode, [images], modules=(self._encoder,))
 
     def generate(self, latents, rotations) -> np.ndarray:
         """Latents + rotations -> uint8 images."""
-        return self._chunked(self._generate, [np.asarray(latents, np.float32),
-                                              np.asarray(rotations, np.float32)])
+        return self._chunked("generate", self._generate, [np.asarray(latents, np.float32),
+                                                          np.asarray(rotations, np.float32)],
+                             modules=(self._generator,))
 
     def render_with_attribute(self, images, param_name: str, param_value,
                               rotations: Optional[np.ndarray] = None) -> np.ndarray:
@@ -151,19 +159,23 @@ class ConfigNetServer:
         chunked = [value] if per_image else []
         extra = () if per_image else (torch.from_numpy(value).to(self.device),)
 
+        # the splice's param_name is part of the graph's key, as it is a
+        # static argument of the JAX server's jit
+        modules = (self._encoder, self._synthetic_encoder, self._generator)
         if rotations is None:
             def pipeline(imgs, value):
                 latents, rots = self._encode(imgs)
                 return self._generate(self._splice(latents, param_name, value), rots)
 
-            return self._chunked(pipeline, [images] + chunked, extra)
+            return self._chunked(("render_with_attribute", param_name), pipeline,
+                                 [images] + chunked, extra, modules)
 
         def pipeline_rot(imgs, rots, value):
             latents, _ = self._encode(imgs)
             return self._generate(self._splice(latents, param_name, value), rots)
 
-        return self._chunked(pipeline_rot, [images, np.asarray(rotations, np.float32)] + chunked,
-                             extra)
+        return self._chunked(("render_with_attribute_at_rotations", param_name), pipeline_rot,
+                             [images, np.asarray(rotations, np.float32)] + chunked, extra, modules)
 
     def sample(self, n: int, rotations: Optional[np.ndarray] = None,
                truncation: float = 1.0) -> np.ndarray:
@@ -176,3 +188,8 @@ class ConfigNetServer:
         if rotations is None:
             rotations = np.zeros((n, 3), np.float32)
         return self.generate(latents, rotations)
+
+
+def _host(tensor: torch.Tensor) -> np.ndarray:
+    """A chunk's output on the host, floats as float32."""
+    return (tensor.float() if tensor.is_floating_point() else tensor).cpu().numpy()

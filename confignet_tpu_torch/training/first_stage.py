@@ -51,6 +51,7 @@ from confignet_tpu_torch.core.async_checkpoint import CheckpointWorker
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.core.graphs import GraphCache
 from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, write_jpeg, write_png
 from confignet_tpu_torch.core.logging_utils import (
     LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
@@ -253,6 +254,10 @@ class ConfigNetFirstStage:
         self._checkpoint_worker: Optional[CheckpointWorker] = None
         self._snapshot_modules: Optional[Dict[str, torch.nn.Module]] = None
         self._inference_params_override: Optional[Dict[str, torch.nn.Module]] = None
+        # the captured graphs of the inference paths and the fine-tune (on
+        # the card), and those of the snapshot modules, which go with them
+        self._graphs = GraphCache(self.device)
+        self._snapshot_graphs: Optional[GraphCache] = None
         self._build_modules()
         if initialize:
             self.initialize_network()
@@ -917,9 +922,12 @@ class ConfigNetFirstStage:
                                for name, tensor in getattr(self, tree).state_dict().items()}
                         for tree in (self.WEIGHT_TREES if metrics_due else inference_trees)}
         if self._snapshot_modules is None:
+            # built once and refilled in place from each snapshot, so their
+            # graphs serve every checkpoint of the run
             self._snapshot_modules = {
                 tree: copy.deepcopy(getattr(self, tree)).requires_grad_(False).eval()
                 for tree in inference_trees}
+            self._snapshot_graphs = GraphCache(self.device)
         # the loss histories are lists the main thread keeps appending to
         losses = {group: {k: list(v) for k, v in history.items()}
                   for group, history in (("g", self.g_losses), ("d", self.d_losses),
@@ -1151,6 +1159,14 @@ class ConfigNetFirstStage:
             return self.generator_smoothed
         return self._fine_tuned_generator
 
+    def _inference_graphs(self) -> GraphCache:
+        """The graph cache of the modules that render: a checkpoint job's
+        snapshot's while one runs (it goes with the snapshot), else the
+        model's."""
+        if self._inference_params_override is not None:
+            return self._snapshot_graphs
+        return self._graphs
+
     def _inference_synthetic_encoder(self) -> SyntheticDataEncoder:
         """The synthetic encoder of a checkpoint job's snapshot while one
         runs, else the live one."""
@@ -1162,12 +1178,18 @@ class ConfigNetFirstStage:
     def generate_images(self, latent_vectors, rotations,
                         batch_chunk: int = RENDER_CHUNK) -> np.ndarray:
         """Inference-generator forward -> uint8 images, chunked at a fixed
-        batch size (the tail padded by repeating its last row)."""
+        batch size (the tail padded by repeating its last row); on the card
+        each chunk replays the graph of its generator and shape."""
         latent_vectors = np.asarray(latent_vectors, np.float32)
         rotations = np.asarray(rotations, np.float32)
         n = latent_vectors.shape[0]
         chunk = min(batch_chunk, max(n, 1))
         gen = self._inference_generator()
+        graphs = self._inference_graphs()
+
+        def render(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+            return uint8_from_unit_range(gen(latents, rotations))
+
         outputs: List[np.ndarray] = []
         for start in range(0, n, chunk):
             lat = latent_vectors[start:start + chunk]
@@ -1176,8 +1198,8 @@ class ConfigNetFirstStage:
             if pad:
                 lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
                 rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
-            img = gen(torch.from_numpy(lat).to(self.device), torch.from_numpy(rot).to(self.device))
-            imgs = uint8_from_unit_range(img).cpu().numpy()
+            imgs = graphs.run("generate_images", render, (torch.from_numpy(lat), torch.from_numpy(rot)),
+                              (gen,)).cpu().numpy()
             outputs.append(imgs[:chunk - pad])
         if not outputs:
             return np.zeros((0,), np.uint8)
@@ -1185,18 +1207,24 @@ class ConfigNetFirstStage:
 
     def _get_metric_features_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
         """The fused generator -> InceptionV3 path of FID/KID
-        (first_stage.py:1147-1167): ``fn(latents, rotations)`` on the device
-        -> float32 (B, 2048).  The images are quantised on the device as
+        (first_stage.py:1147-1167): ``fn(latents, rotations)`` -> float32
+        (B, 2048) on the device, one replay of the chunk's graph on the card
+        (its output buffer).  The images are quantised on the device as
         ``generate_images`` quantises them (clip, truncate to uint8, back to
         float), so the features are those of the saved uint8 images, and the
         images never cross to the host."""
         generator = self._inference_generator()
         extractor = self._inception_metric_object.inception_feature_extractor
+        graphs = self._inference_graphs()
 
         def fused(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
             return extractor.features(uint8_from_unit_range(generator(latents, rotations)).float())
 
-        return fused
+        def run(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+            return graphs.run("metric_features", fused, (latents, rotations),
+                              (generator, extractor.module))
+
+        return run
 
     @torch.inference_mode()
     def _metric_features_for_latents(self, latent_vectors, rotations,
@@ -1217,7 +1245,7 @@ class ConfigNetFirstStage:
             if pad:
                 lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
                 rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
-            feats = fn(torch.from_numpy(lat).to(self.device), torch.from_numpy(rot).to(self.device))
+            feats = fn(torch.from_numpy(lat), torch.from_numpy(rot))
             out[start:start + chunk] = feats.cpu().numpy()[:chunk - pad]
         return out
 

@@ -67,6 +67,48 @@ FineTuneStep = Callable[[torch.nn.Module, Dict[str, torch.Tensor], torch.optim.O
                         Tuple[Dict[str, torch.Tensor], torch.Tensor]]
 
 
+# the fine-tune's loss buffer holds at least this many iterations, so calls
+# of up to the default 50 share one captured iteration
+FINE_TUNE_LOSS_SLOTS = 64
+
+
+class _FineTuneState:
+    """What a fine-tune on a given image count keeps from call to call: the
+    optimised variables, their Adam, the images, and a loss buffer written
+    on the device at a device-side index (one entry an iteration), all
+    reset in place at each call."""
+
+    def __init__(self, generator: torch.nn.Module, variables: Dict[str, torch.Tensor],
+                 optimizer: torch.optim.Optimizer, images: torch.Tensor, n_iters: int):
+        self.generator = generator
+        self.variables = variables
+        self.optimizer = optimizer
+        self.images = images
+        self.losses = torch.full((max(n_iters, FINE_TUNE_LOSS_SLOTS),), float("nan"),
+                                 device=images.device)
+        self.index = torch.zeros((1,), dtype=torch.long, device=images.device)
+
+    @torch.no_grad()
+    def load(self, variables: Dict[str, torch.Tensor], images: np.ndarray) -> None:
+        """Start a call: the new values in place, the Adam moments and step
+        counts zeroed (a fresh Adam's state), the loss index at 0."""
+        for name, value in variables.items():
+            self.variables[name].copy_(value)
+        self.images.copy_(torch.from_numpy(images))
+        for param_state in self.optimizer.state.values():
+            for value in param_state.values():
+                if torch.is_tensor(value):
+                    value.zero_()
+        self.losses.fill_(float("nan"))
+        self.index.zero_()
+
+    @torch.no_grad()
+    def record(self, loss: torch.Tensor) -> None:
+        """The iteration's loss at the device-side index, then the index on."""
+        self.losses.index_copy_(0, self.index, loss.detach().float().reshape(1))
+        self.index.add_(1)
+
+
 class ConfigNet(ConfigNetFirstStage):
     MODEL_TYPE = "ConfigNet"
     WEIGHT_TREES = ConfigNetFirstStage.WEIGHT_TREES + ("real_encoder",)
@@ -76,6 +118,7 @@ class ConfigNet(ConfigNetFirstStage):
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
                  initialize: bool = True):
         self._fine_tune_step_cache: Dict[Tuple[bool, int, Any], FineTuneStep] = {}
+        self._fine_tune_states: Dict[Tuple[bool, int], _FineTuneState] = {}
         self._generator_ft: Optional[torch.nn.Module] = None
         # the loss sums of the last fine_tune_on_img call, 0-d tensors on the device
         self.fine_tune_losses = []
@@ -376,6 +419,7 @@ class ConfigNet(ConfigNetFirstStage):
             input_images = input_images[np.newaxis]
 
         encoder = self._inference_real_encoder()
+        graphs = self._inference_graphs()
         n = input_images.shape[0]
         chunk = min(batch_chunk, max(n, 1))
         lat_out, rot_out = [], []
@@ -384,7 +428,7 @@ class ConfigNet(ConfigNetFirstStage):
             pad = chunk - imgs.shape[0]
             if pad:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
-            lat, rot = encoder(torch.from_numpy(imgs).to(self.device))
+            lat, rot = graphs.run("encode_images", encoder, (torch.from_numpy(imgs),), (encoder,))
             lat_out.append(lat.float().cpu().numpy()[:chunk - pad])
             rot_out.append(rot.float().cpu().numpy()[:chunk - pad])
         return np.concatenate(lat_out), np.concatenate(rot_out)
@@ -405,13 +449,22 @@ class ConfigNet(ConfigNetFirstStage):
         :attr:`fine_tune_losses` (0-d tensors on the device; over a mesh,
         this rank's images').
 
+        Without a mesh the variables, the Adam state, the images and the
+        losses live in buffers kept per (``force_neutral_expression``, image
+        count) and reset in place at each call, and on the card every
+        iteration after the first is a replay of one captured CUDA graph,
+        as every iteration of the JAX fine-tune is one jitted step; the
+        first runs eagerly and builds the Adam state the graph then holds.
+        No iteration waits for the host unless ``img_output_dir`` is set.
+
         ``mesh``: a data-parallel mesh (``parallel/mesh.py``); every rank
         passes the same images and fine-tunes on its rows of them, with
         ``expr`` and ``rotations`` sharded alike when there are several
         images and the generator copy, ``pre_expr`` and ``post_expr``
         replicated (second_stage.py:731-752).  Only rank 0 writes images;
         the printed losses are the global batch's, and every rank returns
-        the full result."""
+        the full result.  The mesh's gradient all-reduce cannot be captured
+        over gloo, so this path runs eagerly."""
         input_images = np.asarray(input_images)
         if input_images.dtype == np.uint8:
             input_images = input_images / 127.5 - 1.0
@@ -425,39 +478,59 @@ class ConfigNet(ConfigNetFirstStage):
                 raise ValueError(f"fine-tune batch {n_imgs} must divide over {mesh.size} devices")
 
         embeddings, rotations = self.encode_images(input_images)
-        variables = self._fine_tune_variables(embeddings, rotations, force_neutral_expression)
         generator = self._fine_tune_generator()
-        per_image = _per_image_variables(n_imgs, mesh)
-        if mesh is not None:
-            rows = process_slice(n_imgs, mesh)
-            variables = {k: v.detach()[rows].clone().requires_grad_(True) if k in per_image else v
-                         for k, v in variables.items()}
-            replicate(mesh, generator)
-            replicate(mesh, [v for k, v in variables.items() if k not in per_image])
-        optimizer = self._fine_tune_optimizer(generator, variables, force_neutral_expression)
         step = self._get_fine_tune_step(force_neutral_expression, n_imgs, mesh)
-        images = (torch.from_numpy(input_images).to(self.device) if mesh is None
-                  else shard_batch(mesh, input_images))
-
-        def global_mean(loss: torch.Tensor) -> float:
-            return float(all_reduce_mean(mesh, [loss.detach().float().clone()])[0])
-
         writes = mesh is None or mesh.rank == 0  # rank 0 holds the first image
         if img_output_dir is not None and writes:
             os.makedirs(img_output_dir, exist_ok=True)
             write_png(os.path.join(img_output_dir, "gt_img.png"),
                       unit_range_to_uint8(input_images)[0])
-        self.fine_tune_losses = []
+
+        def write(step_number: int, loss: float, out: torch.Tensor) -> None:
+            print(loss)
+            if writes:
+                write_png(os.path.join(img_output_dir, "output_%02d.png" % step_number),
+                          unit_range_to_uint8(out.float().cpu().numpy())[0])
+
+        values = self._fine_tune_variables(embeddings, rotations, force_neutral_expression)
+        per_image = _per_image_variables(n_imgs, mesh)
+        if per_image:
+            rows = process_slice(n_imgs, mesh)
+            values = {k: v.detach()[rows].clone().requires_grad_(True) if k in per_image else v
+                      for k, v in values.items()}
+        if mesh is None:
+            state = self._fine_tune_state(force_neutral_expression, values, input_images.shape,
+                                          n_iters)
+            state.load(values, input_images)
+        else:  # nothing captured holds its addresses: built anew at each call
+            replicate(mesh, generator)
+            replicate(mesh, [v for k, v in values.items() if k not in per_image])
+            optimizer = self._fine_tune_optimizer(generator, values, force_neutral_expression)
+            state = _FineTuneState(generator, values, optimizer, shard_batch(mesh, input_images),
+                                   n_iters)
+        variables = state.variables
+
+        def iteration() -> torch.Tensor:
+            losses, out = step(generator, variables, state.optimizer, state.images)
+            state.record(losses["loss_sum"])
+            return out
+
+        captured = mesh is None and self._graphs.active
+        key = self._fine_tune_graph_key(force_neutral_expression, n_imgs) if captured else None
         for step_number in range(n_iters):
-            losses, out = step(generator, variables, optimizer, images)
-            self.fine_tune_losses.append(losses["loss_sum"])
+            if not captured:
+                out = iteration()
+            elif step_number == 0:
+                out = self._graphs.run_on_capture_stream(iteration)
+            else:
+                if not self._graphs.captured(key):
+                    self._graphs.capture(key, iteration, modules=self._fine_tune_modules())
+                out = self._graphs.replay(key)
             if img_output_dir is not None:
-                print(global_mean(losses["loss_sum"]))
-                if writes:
-                    write_png(os.path.join(img_output_dir, "output_%02d.png" % step_number),
-                              unit_range_to_uint8(out.float().cpu().numpy())[0])
+                write(step_number, self._global_mean(state.losses[step_number], mesh), out)
+        self.fine_tune_losses = list(state.losses[:n_iters].clone())
         if n_iters > 0:
-            print("fine-tune final loss: %f" % global_mean(self.fine_tune_losses[-1]))
+            print("fine-tune final loss: %f" % self._global_mean(self.fine_tune_losses[-1], mesh))
 
         self._fine_tuned_generator_params = {k: v.detach().clone()
                                              for k, v in generator.state_dict().items()}
@@ -465,7 +538,40 @@ class ConfigNet(ConfigNetFirstStage):
             variables = {k: all_gather_rows(mesh, v.detach()) if k in per_image else v
                          for k, v in variables.items()}
             embeddings = self._fine_tune_embeddings(variables, n_imgs)
-        return embeddings.float().cpu().numpy(), variables["rotations"].detach().float().cpu().numpy()
+            rotations = variables["rotations"].detach().float().clone()  # the buffer is reused
+        return embeddings.float().cpu().numpy(), rotations.cpu().numpy()
+
+    @staticmethod
+    def _global_mean(loss: torch.Tensor, mesh) -> float:
+        return float(all_reduce_mean(mesh, [loss.detach().float().clone()])[0])
+
+    def _fine_tune_graph_key(self, force_neutral: bool, n_imgs: int) -> tuple:
+        """The graph cache's key of one fine-tune iteration on ``n_imgs``
+        photos (no mesh)."""
+        return self._graphs.key(("fine_tune", force_neutral, n_imgs), self._fine_tune_modules())
+
+    def _fine_tune_modules(self) -> Tuple[torch.nn.Module, ...]:
+        """Every module a fine-tune iteration reads."""
+        return (self._generator_ft, self.perceptual_loss, self.perceptual_loss_face_reco,
+                self.discriminator, self.latent_discriminator, self.latent_regressor)
+
+    def _fine_tune_state(self, force_neutral: bool, variables: Dict[str, torch.Tensor],
+                         images_shape: Tuple[int, ...], n_iters: int) -> "_FineTuneState":
+        """The buffers of the fine-tune on images of ``images_shape``, built
+        at the first call (around that call's ``variables``) and kept, so
+        that a captured iteration's addresses stay valid.  A call of more
+        iterations than the loss buffer holds, or a new fine-tune generator,
+        builds them anew and drops the graph."""
+        key = (force_neutral, images_shape[0])
+        state = self._fine_tune_states.get(key)
+        if (state is None or state.losses.shape[0] < n_iters or state.generator is not self._generator_ft
+                or state.images.shape != images_shape):
+            self._graphs.discard(("fine_tune",) + key)
+            optimizer = self._fine_tune_optimizer(self._generator_ft, variables, force_neutral)
+            state = _FineTuneState(self._generator_ft, variables, optimizer,
+                                   torch.zeros(images_shape, device=self.device), n_iters)
+            self._fine_tune_states[key] = state
+        return state
 
     def _fine_tune_variables(self, embeddings: np.ndarray, rotations: np.ndarray,
                              force_neutral_expression: bool) -> Dict[str, torch.Tensor]:
@@ -501,10 +607,12 @@ class ConfigNet(ConfigNetFirstStage):
                              force_neutral_expression: bool) -> torch.optim.Adam:
         """A fresh Adam over the generator copy and the variables; with a
         forced neutral expression the ``expr`` segment is left out, which is
-        optax's ``multi_transform`` with ``set_to_zero`` (second_stage.py:714-720)."""
+        optax's ``multi_transform`` with ``set_to_zero`` (second_stage.py:714-720).
+        On the card it keeps its step counts on the device, so an Adam step
+        can be captured."""
         frozen = ("expr",) if force_neutral_expression else ()
-        return make_fine_tune_adam(list(generator.parameters())
-                                   + [v for k, v in variables.items() if k not in frozen])
+        params = list(generator.parameters()) + [v for k, v in variables.items() if k not in frozen]
+        return make_fine_tune_adam(params, capturable=params[0].is_cuda)
 
     @staticmethod
     def _fine_tune_embeddings(variables: Dict[str, torch.Tensor], n_imgs: int) -> torch.Tensor:

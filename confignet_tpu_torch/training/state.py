@@ -75,10 +75,13 @@ def make_adam(params: Iterable[torch.nn.Parameter],
     return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-7)
 
 
-def make_fine_tune_adam(params: Iterable[torch.Tensor]) -> torch.optim.Adam:
+def make_fine_tune_adam(params: Iterable[torch.Tensor], capturable: bool = False) -> torch.optim.Adam:
     """The one-shot fine-tune's Adam (second_stage.py:714): lr 1e-4, betas
-    (0.9, 0.999), eps 1e-7 -- not the players' betas (0, 0.9)."""
-    return torch.optim.Adam(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-7)
+    (0.9, 0.999), eps 1e-7 -- not the players' betas (0, 0.9).  With
+    ``capturable`` (CUDA parameters only) its step counts and bias
+    corrections stay on the device, as optax's do, so its step can be
+    captured in a CUDA graph."""
+    return torch.optim.Adam(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-7, capturable=capturable)
 
 
 @torch.no_grad()

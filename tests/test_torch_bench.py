@@ -173,6 +173,25 @@ def test_headline_loop_matches_jax():
     np.testing.assert_allclose(last.numpy(), want_last, atol=1e-4)
 
 
+@pytest.mark.parametrize("config", [bench_train.BENCH_CONFIG, TINY], ids=["256px", "128px"])
+def test_training_data_matches_the_root_bench(config):
+    """The train rows' data: every array of the set the root bench_train.py
+    draws (tests/helpers.FakeDataset at seed 0, the left eye copied from
+    the rotations), equal."""
+    want = jax_bench_train()._fake_dataset(config["output_shape"][0])
+    got = bench_train.fake_dataset(config)
+    np.testing.assert_array_equal(got.imgs, want.imgs)
+    np.testing.assert_array_equal(got.eye_masks, want.eye_masks)
+    np.testing.assert_array_equal(got.inception_features, want.inception_features)
+    assert list(got.metadata_inputs) == list(want.metadata_inputs)
+    for name, values in want.metadata_inputs.items():
+        assert got.metadata_inputs[name].dtype == values.dtype, name
+        assert np.array_equal(got.metadata_inputs[name], values), name
+    rotations = got.metadata_inputs["rotations"]
+    assert np.abs(rotations).max() <= 0.2 and np.abs(rotations[:, 2]).max() > 0.1
+    np.testing.assert_array_equal(got.metadata_inputs["bone_rotations:left_eye"], rotations[:, :2])
+
+
 def test_launch_table_matches_the_generator():
     """unit_launches' AdaIN sites are the generator's ConvAdaIN blocks, and
     the table is the one the bench asserts."""
