@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from chip_smoke import (TRAIN_BATCH, TRAIN_CONFIG, FakeDataset, card_line, check_finite,
                         give_encoder_heads_weights, serving_config, train_config)
+from confignet_tpu_torch.core import graphs
 from confignet_tpu_torch.models import blocks
 from confignet_tpu_torch.ops import cuda_build
 from confignet_tpu_torch.serving import ConfigNetServer
@@ -54,13 +55,16 @@ ORDER = ("function", "leaky_relu", "leaky_relu", "function") * 2
 
 @contextlib.contextmanager
 def mlp_activation(variant: str):
-    """``function``: the MLPs as committed; ``leaky_relu``: F.leaky_relu."""
-    if variant == "function":
-        yield
-        return
-    with mock.patch.object(blocks.LeakyReLUUnitGradAtZero, "apply",
-                           lambda x, negative_slope: F.leaky_relu(x, negative_slope)):
-        yield
+    """``function``: the MLPs as committed; ``leaky_relu``: F.leaky_relu.
+    Both run op by op (``graphs.eager()``): a replayed CUDA graph would run
+    whichever variant it captured."""
+    with graphs.eager():
+        if variant == "function":
+            yield
+            return
+        with mock.patch.object(blocks.LeakyReLUUnitGradAtZero, "apply",
+                               lambda x, negative_slope: F.leaky_relu(x, negative_slope)):
+            yield
 
 
 def device_ops(fn) -> int:

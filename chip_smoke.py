@@ -45,7 +45,8 @@
    autograd backward of F.group_norm + affine.
 7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
    layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
-   fake dataset of 64 images: float32, one warm-up and 3 timed steps, each with
+   fake dataset of 64 images: float32, two warm-up steps (the first eager, the
+   second capturing the step's CUDA graph) and 3 timed replays, each with
    exactly 4 rotation-forward, 2 transpose, 24 AdaIN-forward and 12
    AdaIN-backward launches, finite losses,
    a nonzero gradient for every generator-player parameter and a moving EMA;
@@ -59,7 +60,7 @@
 8. Trains the stage-2 model (ConfigNet: the encoder joins the generator
    player; its VGGFace loss is the fine-tune's, not the step's) at the same
    width and batch, its encoder heads given weights: float32 and bfloat16,
-   one warm-up and 3 timed steps each, with the stage-1 step's launch
+   two warm-up steps and 3 timed replays each, with the stage-1 step's launch
    counts, finite losses, a nonzero gradient for every generator-player
    parameter (the encoder's included) and a moving EMA.  Then one float32
    step of the kernel path and of the plain path, bounded as in step 7.
@@ -85,7 +86,7 @@
    given weights, seeded Gaussian face-model distributions) with save() and
    reloads it with load_confignet(), every weight tree equal bit for bit and
    32 renders identical; trains a LatentGAN(latent_dim=145) at batch 32 on the
-   embeddings of 64 seeded photos (extract_embeddings; one warm-up and
+   embeddings of 64 seeded photos (extract_embeddings; two warm-up and
    LATENT_GAN_STEPS timed steps, finite losses, a generator that moved,
    steps/s printed) and round-trips it (generate_latents_smoothed equal bit
    for bit); times ConfigNetServer(model, latent_gan, chunk=32).sample(256,
@@ -116,7 +117,8 @@
    rounding probe where the judge's outputs are that sensitive); and with
    per_image_tuning_iters=10 on 2 images in float32 (exactly 34, 0, 324 and
    120 launches).
-13. The train() loops, at full width (TRAIN_CONFIG, bf16, a 64-image fake
+13. The train() loops (their steps replays of the captured step after the
+   first two), at full width (TRAIN_CONFIG, bf16, a 64-image fake
    set with exemplar distributions, loss_print_period 2, both checkpoint
    periods 3, FID/KID on 64 samples, an aml_run recorder in place of the
    loss plots): stage-1 train() for 6 steps on the checkpoint worker, its
@@ -201,7 +203,7 @@
    iterations of exactly (0, 0, 7, 7) launches (iters/s), and the float32
    kernel path against the plain path along one trajectory (step 10's
    rule); (e) the float32 stage-2 step (step 8's config at 512px, batch
-   24): one warm-up and 2 timed steps of exactly
+   24): two warm-up and 2 timed steps of exactly
    (4, 2, 28, 14) launches (steps/s, peak GB), then the kernel path against
    the plain path (step 7's rule); (f) with --profile, one 512px generate
    chunk (<stem>_512_generate.txt) and a 5-iteration fine-tune call
@@ -239,8 +241,23 @@
    and generator), and the captured run (one eager iteration, then
    replays) must equal them, with (0, 0, 6, 6) / (0, 0, 7, 7) launches an
    iteration; then 20 / 10 iterations (50 with --graphs-only) of each mode
-   timed in turns.  With --profile, a generate chunk and a 10-iteration
-   fine-tune, captured and eager (<stem>_graph_*.txt).
+   timed in turns.  Then the train steps (GraphCache.run_step): the
+   stage-1 step in float32 and bfloat16, the float32 stage-2 step at 256px
+   and at 512px (step 7's config, batch 24) and the LatentGAN's step (batch
+   32, latent_dim 145): under deterministic algorithms, after one eager
+   step, 3 steps run eagerly and the same 3 steps through the graph from
+   the same state and draws must agree bit for bit (every parameter, Adam
+   moment and step count, the EMA generator, every loss, the draw
+   generator's state after each step, which must move at every step), with
+   exactly (4, 2, 24, 12) launches a replay at 256px and (4, 2, 28, 14) at
+   512px; then a capture of its own (ms, pool GB) and 2 / 1 / 50 steps of
+   each mode timed in turns (steps/s; --graphs-only: 5 / 2 / 200), each
+   turn's launches held.  Last, the LatentGAN's sampler
+   (generate_latents_smoothed, 4 chunks of 256) against eager as the
+   chunks above.  With --profile, also one captured and one eager step of
+   the float32 stages and the LatentGAN (<stem>_graph_stage*.txt,
+   <stem>_graph_latent_gan_*.txt): the busy shares.  The loops of steps 13
+   and 16 and the train rows of step 17 run on the same replays.
 19. Prints the kernels' JSON record (launches per path, times on the
    float32 train step's path and, as train_step_512, on the 512px step's),
    then as the last line {"ok": true, "device": {...}}.
@@ -305,7 +322,7 @@ from confignet_tpu_torch.metrics.inception import InceptionFeatureExtractor, Inc
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.first_stage import (
     METRIC_CHUNK, RENDER_CHUNK, ConfigNetFirstStage, checkpoint_chunks)
-from confignet_tpu_torch.training.latent_gan import LatentGAN
+from confignet_tpu_torch.training.latent_gan import SAMPLE_CHUNK, LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -785,25 +802,29 @@ def check_finite(losses, label):
 
 def train_run(model, dataset, label: str, card: str, kind: str, per_step=TRAIN_STEP_LAUNCHES,
               steps: int = TRAIN_STEPS):
-    """One warm-up step, then ``steps`` timed steps (host batches drawn
+    """Two warm-up steps (the first eager, the second capturing the step's
+    CUDA graph), then ``steps`` timed steps (replays; host batches drawn
     beforehand), each with exactly ``per_step`` kernel launches.  The
     launch counters are zeroed after the warm-up; returns (the counters after
     the timed steps, the run's record, the Adam first moments of the
-    generator player after the warm-up step)."""
+    generator player after the first step)."""
     batch_size = model.config["batch_size"]
     step = model._build_train_step()
-    batches = [model._sample_host_batch(dataset, dataset) for _ in range(steps + 1)]
+    batches = [model._sample_host_batch(dataset, dataset) for _ in range(steps + 2)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     check_finite(step(batches[0]), label)
     warmup_s = time.perf_counter() - t0
     first_moments = model.first_moments()["generator"]
+    t0 = time.perf_counter()
+    check_finite(step(batches[1]), label)
+    capture_step_s = time.perf_counter() - t0
 
     zero_launch_counts()
     all_losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for batch in batches[1:]:
+    for batch in batches[2:]:
         before = launch_counts()
         all_losses.append(step(batch))
         delta = tuple(after - b for after, b in zip(launch_counts(), before))
@@ -817,12 +838,14 @@ def train_run(model, dataset, label: str, card: str, kind: str, per_step=TRAIN_S
         check_finite(losses, label)
     rec = dict(run=label, steps=steps, batch=batch_size, seconds=seconds,
                steps_per_s=steps / seconds, img_per_s=steps * batch_size / seconds,
-               warmup_s=warmup_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               warmup_s=warmup_s, capture_step_s=capture_step_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=dict(zip(LAUNCH_NAMES, launches)),
                last_losses={g: {k: float(v) for k, v in d.items()} for g, d in all_losses[-1].items()})
     print(f"train {label}: {steps} steps of {batch_size} in {seconds * 1e3:.1f} ms = "
           f"{rec['steps_per_s']:.3f} steps/s, {rec['img_per_s']:.1f} img/s on {kind} ({card}); "
-          f"warm-up {warmup_s:.1f} s; peak {rec['peak_memory_gb']:.1f} GB; launches {launches}; "
+          f"warm-up {warmup_s:.1f} s, capturing step {capture_step_s:.1f} s; peak "
+          f"{rec['peak_memory_gb']:.1f} GB; launches {launches}; "
           f"loss_sum g {rec['last_losses']['g']['loss_sum']:.4f} d "
           f"{rec['last_losses']['d']['loss_sum']:.4f}", flush=True)
     return launches, rec, first_moments
@@ -1253,7 +1276,8 @@ def round_trip_confignet(model, directory: str):
 def latent_gan_run(confignet, dataset, directory: str, card: str, kind: str,
                    profile_path=None):
     """A LatentGAN(latent_dim=145) with the default config (batch 32) on the
-    embeddings of ``dataset.imgs``: one warm-up and LATENT_GAN_STEPS timed steps
+    embeddings of ``dataset.imgs``: two warm-up steps (eager, then the
+    capture of the step's CUDA graph) and LATENT_GAN_STEPS timed replays
     (finite losses with the JAX package's keys, a generator that moved), then
     save() / LatentGAN.load() with generate_latents_smoothed equal bit for
     bit; with ``profile_path``, one more step profiled.  Returns (the GAN,
@@ -1265,14 +1289,15 @@ def latent_gan_run(confignet, dataset, directory: str, card: str, kind: str,
     if not np.isfinite(embeddings).all() or embeddings[:, 0].std() == 0:
         raise AssertionError("extract_embeddings gave non-finite or equal embeddings")
     real = torch.from_numpy(embeddings).to(gan.device)
-    idx = np.random.default_rng(3).integers(0, len(embeddings), (LATENT_GAN_STEPS + 1, 32))
+    idx = np.random.default_rng(3).integers(0, len(embeddings), (LATENT_GAN_STEPS + 2, 32))
     batches = [real[torch.from_numpy(i).to(gan.device)] for i in idx]
     before = gan.get_weights()["generator"]
     step = gan._build_train_step()
-    check_finite(step(batches[0]), "latent GAN")
+    for batch in batches[:2]:
+        check_finite(step(batch), "latent GAN")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    all_losses = [step(batch) for batch in batches[1:]]
+    all_losses = [step(batch) for batch in batches[2:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     for losses in all_losses:
@@ -1841,21 +1866,6 @@ def tables_distance(a_dir, b_dir) -> float:
                for t in LOSS_TABLES)
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """cuDNN's deterministic algorithms, and PyTorch's deterministic
-    implementations where an op has one (a warning names any op without)."""
-    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved[0]
-        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
-
-
 def async_against_sync(dataset, directory: str, card: str, kind: str) -> dict:
     """The seeded stage-1 loop on the worker, inline, inline, on the worker,
     with deterministic algorithms (with cuDNN's defaults two inline runs on
@@ -1867,7 +1877,7 @@ def async_against_sync(dataset, directory: str, card: str, kind: str) -> dict:
     distance.  This is the check that the worker never reads live weights:
     the step after a checkpoint updates them in place."""
     runs, records = {}, []
-    with deterministic_algorithms():
+    with bench_train.deterministic_algorithms():
         for name, async_checkpointing in (("async_1", True), ("sync_1", False), ("sync_2", False),
                                           ("async_2", True)):
             runs[name] = os.path.join(directory, name)
@@ -2492,7 +2502,7 @@ def single_rank_group(dataset, card: str, kind: str) -> tuple:
     if torch.device(MESH_DEVICE).type == "cuda":
         torch.cuda.set_device(MESH_DEVICE)
     with process_group(MESH_BACKEND, 0, 1, free_port(), MESH_DEVICE) as mesh, \
-            deterministic_algorithms():
+            bench_train.deterministic_algorithms():
         # the train step
         model = ConfigNet(train_config("float32"), device=MESH_DEVICE)
         give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
@@ -2865,7 +2875,7 @@ def first_step_probe(card: str, kind: str, path: str) -> dict:
     dataset = FakeDataset(64, 256, {name: dims[0] for name, dims
                                     in TRAIN_CONFIG["facemodel_inputs"].items()}, seed=0)
     runs = []
-    with deterministic_algorithms():
+    with bench_train.deterministic_algorithms():
         model = ConfigNet(train_config("float32"))
         give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
         weights = model.get_weights()
@@ -3223,6 +3233,9 @@ GRAPH_LATENTS = 256  # generate and sample: 8 chunks of 32; generate_images: 8; 
 GRAPH_TURNS = 2  # eager, graph, graph, eager: this many times for each path
 GRAPH_FINE_TUNE_CHECK_ITERS = 5  # the fine-tunes held bit for bit, eager twice then captured
 GRAPH_FINE_TUNE_ITERS = {256: 20, 512: 10}  # the timed fine-tunes (--graphs-only: 50)
+GRAPH_TRAIN_CHECK_STEPS = 3  # the train steps held bit for bit, eager then captured
+GRAPH_TRAIN_STEPS = {256: 2, 512: 1, "latent_gan": 50}  # a timed turn's steps (--graphs-only: more)
+GRAPH_SAMPLE_LATENTS = 4 * SAMPLE_CHUNK  # the LatentGAN sampler: 4 chunks
 
 
 def _same(a, b) -> bool:
@@ -3304,7 +3317,7 @@ def fine_tune_graph_run(model, photo, label: str, unit: tuple, iters: int, card:
 
     n = GRAPH_FINE_TUNE_CHECK_ITERS
     expected = tuple(n * u for u in unit)
-    with deterministic_algorithms():
+    with bench_train.deterministic_algorithms():
         runs = []
         for mode in ("eager", "eager", "graph"):
             with graphs.eager() if mode == "eager" else contextlib.nullcontext():
@@ -3344,6 +3357,131 @@ def fine_tune_graph_run(model, photo, label: str, unit: tuple, iters: int, card:
           f"{[round(r, 2) for r in rates['eager']]}, graph {[round(r, 2) for r in rates['graph']]} "
           f"on {kind} ({card})", flush=True)
     return rec
+
+
+def train_graph_run(model, next_input, label: str, unit: tuple, steps: int, card: str, kind: str,
+                    profile_path=None) -> dict:
+    """A train step (either stage's, or the LatentGAN's) through its graph
+    against eager.  Under deterministic algorithms, after one eager step,
+    GRAPH_TRAIN_CHECK_STEPS steps run eagerly and the same steps through the
+    graph from the same state and draws (bench_train.captured_against_eager)
+    must agree bit for bit in every parameter, Adam moment and step count,
+    the EMA generator, every loss and the draw generator's state, with
+    ``unit`` launches a captured step; the draws differ from step to step.
+    Then, with the default algorithms, a capture of its own (its time, and
+    the memory its pool holds: reserved after empty_cache, around the
+    capturing call) and ``steps`` steps of each mode timed in turns (eager,
+    graph, graph, eager), each turn with exactly ``steps`` times ``unit``
+    launches, on inputs staged beforehand; with ``profile_path`` one
+    captured and one eager step profiled (<path>_graph.txt, _eager.txt)."""
+    step = model._build_train_step()
+    n = GRAPH_TRAIN_CHECK_STEPS
+    check = bench_train.captured_against_eager(model, step, [next_input() for _ in range(n + 1)],
+                                               label)
+    if check["launches"] != tuple(n * u for u in unit):
+        raise AssertionError(f"graphs {label}: {n} captured steps launched {check['launches']}, "
+                             f"expected {unit} a step")
+    step.graphs.clear()  # a capture of its own, for its time and pool
+    step(next_input())  # the first call with the default algorithms: eager
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved, capture_s = torch.cuda.memory_reserved(), step.graphs.capture_seconds
+    t0 = time.perf_counter()
+    check_finite(step(next_input()), label)
+    first_s = time.perf_counter() - t0
+    capture_s = step.graphs.capture_seconds - capture_s
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    rates, peaks = {"eager": [], "graph": []}, {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        inputs = [next_input() for _ in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for x in inputs:
+                losses = step(x)
+            losses["g"]["loss_sum"].item()
+            rates[mode].append(steps / (time.perf_counter() - t0))
+        if launch_counts() != tuple(steps * u for u in unit):
+            raise AssertionError(f"graphs {label} ({mode}): launches {launch_counts()} in {steps} "
+                                 f"steps, expected {unit} a step")
+        check_finite(losses, label)
+        peaks[mode] = torch.cuda.max_memory_allocated() / 1e9
+    rec = dict(path=label, bit_equal=True, check_steps=n, tensors=check["tensors"],
+               launches=dict(zip(LAUNCH_NAMES, check["launches"])),
+               launches_per_step=dict(zip(LAUNCH_NAMES, unit)), capture_s=capture_s,
+               first_call_s=first_s, graph_pool_gb=held / 1e9, steps=steps,
+               eager_steps_s=rates["eager"], graph_steps_s=rates["graph"],
+               eager_peak_gb=peaks["eager"], graph_peak_gb=peaks["graph"])
+    print(f"graphs {label}: {n} steps bit-equal to eager ({check['tensors']} state tensors, every "
+          f"loss, the draw generator), launches {check['launches']}; captured in "
+          f"{capture_s * 1e3:.1f} ms (first call {first_s * 1e3:.1f} ms), pool "
+          f"{held / 1e9:.3f} GB; "
+          f"steps/s eager {[round(r, 3) for r in rates['eager']]}, graph "
+          f"{[round(r, 3) for r in rates['graph']]}; peak GB eager {peaks['eager']:.2f}, graph "
+          f"{peaks['graph']:.2f} on {kind} ({card})", flush=True)
+    if profile_path:
+        x = next_input()
+        for mode in ("graph", "eager"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                rec[f"profile_{mode}"] = profile(f"{label} step ({mode})", lambda: step(x),
+                                                 f"{profile_path}_{mode}.txt")
+    return rec
+
+
+def train_graphs(card: str, kind: str, profile_stem=None) -> list:
+    """Step 18's train paths, through train_graph_run: the stage-1 step at
+    full width in float32 and bfloat16, the float32 stage-2 step at 256px
+    and at 512px (the seventh AdaIN site's co-resident launches captured),
+    the LatentGAN's step (batch 32, latent_dim 145); then its sampler,
+    generate_latents_smoothed, over GRAPH_SAMPLE_LATENTS latents
+    (graph_against_eager)."""
+    dims = {name: d[0] for name, d in TRAIN_CONFIG["facemodel_inputs"].items()}
+    records = []
+    for label, cls, config, size in (
+            ("stage1 float32", ConfigNetFirstStage, train_config("float32"), 256),
+            ("stage1 bfloat16", ConfigNetFirstStage, train_config("bfloat16"), 256),
+            ("stage2 float32", ConfigNet, train_config("float32"), 256),
+            ("stage2 512px float32", ConfigNet, at_512(train_config("float32")), SIZE_512)):
+        dataset = FakeDataset(64, size, dims, seed=18)
+        model = cls(config)
+        if cls is ConfigNet:
+            give_encoder_heads_weights(model, dataset.imgs[:TRAIN_BATCH])
+
+        def next_batch():
+            return model._batch_to_device(model._sample_host_batch(dataset, dataset))
+
+        profile_path = (f"{profile_stem}_graph_{label.replace(' ', '_')}"
+                        if profile_stem and size == 256 and "bfloat16" not in label else None)
+        records.append(train_graph_run(model, next_batch, label, unit_launches("train_step", size),
+                                       GRAPH_TRAIN_STEPS[size], card, kind, profile_path))
+        del model, next_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    latent_dim = sum(d[1] for d in TRAIN_CONFIG["facemodel_inputs"].values())
+    gan = LatentGAN({"latent_dim": latent_dim})
+    embeddings = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(LOOP_IMAGES, latent_dim)).astype(np.float32)).to(gan.device)
+    rng = np.random.default_rng(19)
+
+    def next_real():
+        idx = torch.from_numpy(rng.integers(0, LOOP_IMAGES, gan.config["batch_size"]))
+        return embeddings[idx.to(gan.device)]
+
+    records.append(train_graph_run(
+        gan, next_real, "latent_gan step", (0, 0, 0, 0), GRAPH_TRAIN_STEPS["latent_gan"], card,
+        kind, profile_stem and f"{profile_stem}_graph_latent_gan"))
+    noise = np.random.default_rng(20).normal(size=(GRAPH_SAMPLE_LATENTS, latent_dim))
+    gan._graphs.clear()
+    records.append(graph_against_eager(
+        "latent_gan generate_latents_smoothed", lambda: gan.generate_latents_smoothed(noise),
+        gan._graphs, (0, 0, 0, 0), GRAPH_SAMPLE_LATENTS // SAMPLE_CHUNK, GRAPH_SAMPLE_LATENTS,
+        card, kind))
+    return records
 
 
 def graph_key_costs(server, model, photos, blend, latents, rotations, card: str,
@@ -3464,6 +3602,7 @@ def graphs_path(card: str, kind: str, profile_stem=None) -> tuple:
         del model
         gc.collect()
         torch.cuda.empty_cache()
+    rec["paths"] += train_graphs(card, kind, profile_stem)
     # the captured runs' launches: each check zeroes the counters before its own
     launches = tuple(sum(r["launches"][name] for r in rec["paths"]) for name in LAUNCH_NAMES)
     rec["seconds"] = time.perf_counter() - t_step
@@ -3486,7 +3625,10 @@ def profile(label: str, fn, path: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # a user annotation's range (the optimizers' "Optimizer.step#...") spans
+    # kernels that are counted themselves
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     by_shape = prof.key_averages(group_by_input_shape=True).table(
@@ -3533,7 +3675,8 @@ def main() -> int:
     parser.add_argument("--graphs-only", action="store_true",
                         help="only build the kernels and run step 18, the captured paths, at the "
                         "measurement's counts (50 fine-tune iterations at 256px and 512px, three "
-                        "turns), then stop (no kernels line and no result line)")
+                        "turns, train turns of 5 / 2 / 200 steps), then stop (no kernels line and "
+                        "no result line)")
     parser.add_argument("--first-step-probe", metavar="PATH",
                         help="only build the kernels, run three float32 stage-2 steps from the same "
                         "weights with every op digested, write where the first differs to PATH "
@@ -3605,6 +3748,7 @@ def main() -> int:
         global GRAPH_TURNS
         GRAPH_TURNS = 3
         GRAPH_FINE_TUNE_ITERS.update({256: 50, 512: 50})
+        GRAPH_TRAIN_STEPS.update({256: 5, 512: 2, "latent_gan": 200})
         _, graph_rec = graphs_path(card, kind, profile_stem)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3747,8 +3891,11 @@ def main() -> int:
                                                        "stage1 float32"))
 
     def profile_step(model, label, suffix):
+        """One step as the loop runs it: a replay (a first call, eager,
+        then profile's warm call, which captures)."""
         step = model._build_train_step()
         batch = model._sample_host_batch(dataset, dataset)
+        step(batch)
         profile(label, lambda: step(batch),
                 str(Path(args.profile).with_name(Path(args.profile).stem + suffix)))
 
@@ -3914,7 +4061,7 @@ def main() -> int:
                "fine_tune_512": {"adain_cuda", "adain_backward_cuda"},
                "train_512": {item["name"] for item in kernels},
                "bench": {item["name"] for item in kernels},
-               "graphs": {"rotate_cuda", "adain_cuda", "adain_backward_cuda"}}
+               "graphs": {item["name"] for item in kernels}}
     for item in kernels:
         missed = [path for path, names in on_path.items()
                   if item["name"] in names and item["launches_by_path"][path] < 1]

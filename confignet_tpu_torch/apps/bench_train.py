@@ -13,8 +13,14 @@ serving, gen512, checkpointing``:
 
 - ``stage{1,2}_train_step_{float32,bfloat16}``: steps/s of the stage's train
   step at ``BENCH_CONFIG`` (256px, batch 24), ``--iters`` steps chained with
-  no host sync after one warm step, ending at the last step's
-  ``g/loss_sum``; batches come through ``data/prefetch.BatchPrefetcher``, or
+  no host sync after two warm steps, ending at the last step's
+  ``g/loss_sum``: on the card the captured step (``core/graphs.py``; the
+  warm steps run eagerly and capture), and the same chain run eagerly
+  (``graphs.eager()``) as ``eager_steps_per_s``.  First, under
+  deterministic algorithms, ``CHECK_STEPS`` steps through the graph must
+  equal the same steps run eagerly from the same state bit for bit
+  (``captured_against_eager``).  Batches come through
+  ``data/prefetch.BatchPrefetcher``, or
   with ``BENCH_STAGED=1`` three batches staged on the device beforehand
   (the metric then ends in ``_staged``).  ``_b<N>`` marks a batch other than
   24 and ``_r1_final`` the single-head R1 penalty.
@@ -48,6 +54,7 @@ the card (``nvidia-smi`` name and power limit) and its peak memory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import itertools
@@ -64,7 +71,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from confignet_tpu_torch.core import initializers
+from confignet_tpu_torch.core import graphs, initializers
 from confignet_tpu_torch.core.device import card_line, resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache
 from confignet_tpu_torch.data.distributions import fit_distribution
@@ -323,32 +330,126 @@ def _metric_name_parts(cfg: dict, staged: bool):
     return suffix, row_kwargs
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic
+    implementations where an op has one (a warning names any op without)."""
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+# the steps of a train row's captured chain held to its eager chain
+CHECK_STEPS = 2
+
+
+def step_state(model) -> Dict[str, torch.Tensor]:
+    """Every tensor a train step writes, by name: each weight tree's
+    parameters and buffers (the EMA generator's too) and each player's
+    optimizer state (moments, step counts)."""
+    state = {f"{tree}/{name}": tensor for tree in model.WEIGHT_TREES
+             for name, tensor in getattr(model, tree).state_dict().items()}
+    for player, optimizer in sorted(model.optimizers.items()):
+        for i, param_state in enumerate(optimizer.state.values()):
+            state.update({f"{player}/{i}/{key}": value for key, value in param_state.items()})
+    return state
+
+
+def captured_against_eager(model, step, inputs: List[Any], label: str) -> Dict[str, Any]:
+    """A train step's graph against its eager run, under deterministic
+    algorithms: one step on ``inputs[0]`` (the first call of its key, so
+    eager: it builds the optimizers' state), then from the state it leaves
+    a step on each of the other inputs run eagerly (``graphs.eager()``),
+    then, from that state restored in place and the draw generator's
+    restored, the same steps through the graph (the first captures, the
+    others replay).  Every tensor of :func:`step_state`, every loss, the
+    launches and the draw generator's state after each step must be equal
+    bit for bit, and that state must move at every step (each replay draws
+    afresh).  Returns the steps held, the state tensors compared and the
+    graph's launches over the steps."""
+    with deterministic_algorithms():
+        step(inputs[0])
+        state = step_state(model)
+        with torch.no_grad():
+            start = {k: v.clone() for k, v in state.items()}
+        draws = model._draws.get_state()
+        runs = {}
+        for mode in ("eager", "graph"):
+            with torch.no_grad():
+                for k, v in state.items():
+                    v.copy_(start[k])
+            model._draws.set_state(draws)
+            zero_launch_counts()
+            losses, draw_states = [], []
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                for x in inputs[1:]:
+                    losses.append(step(x))
+                    draw_states.append(model._draws.get_state())
+            with torch.no_grad():
+                runs[mode] = ({k: v.clone() for k, v in state.items()}, losses, draw_states,
+                              launch_counts())
+    (eager_state, eager_losses, eager_draws, eager_launches) = runs["eager"]
+    (graph_state, graph_losses, graph_draws, launches) = runs["graph"]
+    unequal = [k for k in eager_state if not torch.equal(eager_state[k], graph_state[k])]
+    unequal += [f"step {i + 1} {group}/{key}"
+                for i, (a, b) in enumerate(zip(eager_losses, graph_losses))
+                for group in a for key in a[group] if not torch.equal(a[group][key], b[group][key])]
+    unequal += [f"the draw generator after step {i + 1}"
+                for i, (a, b) in enumerate(zip(eager_draws, graph_draws)) if not torch.equal(a, b)]
+    if unequal or launches != eager_launches:
+        raise AssertionError(f"{label}: {len(inputs) - 1} captured steps differ from the eager "
+                             f"steps in {len(unequal)} tensors ({unequal[:5]}); launches "
+                             f"{launches} against {eager_launches}")
+    if any(torch.equal(a, b) for a, b in zip([draws] + graph_draws, graph_draws)):
+        raise AssertionError(f"{label}: a captured step left the draw generator where it was")
+    return {"steps": len(inputs) - 1, "tensors": len(eager_state), "launches": launches}
+
+
 def _timed_train_steps(model, dataset, n_iters: int, label: str):
     """steps/s of ``n_iters`` train steps chained with no host sync after
-    one warm step, ending at ``.item()`` of the last step's ``g/loss_sum``.
-    Batches come through a BatchPrefetcher (host sampling and the copy on a
-    background thread, as ``train()`` runs), or with BENCH_STAGED=1 from
-    three batches staged on the device beforehand.  Returns (steps/s,
-    staged, launches, peak GB)."""
+    two warm steps (on the card the first runs eagerly, the second captures
+    the step), ending at ``.item()`` of the last step's ``g/loss_sum``; then
+    the same chain run eagerly.  First ``CHECK_STEPS`` captured steps are
+    held to the eager ones (:func:`captured_against_eager`).  Batches come
+    through a BatchPrefetcher (host sampling and the copy on a background
+    thread, as ``train()`` runs), or with BENCH_STAGED=1 from three batches
+    staged on the device beforehand.  Returns (steps/s, eager steps/s,
+    staged, launches, peak GB, the check's record)."""
     device = model.device
     step = model._build_train_step()
     expected = scaled(n_iters, unit_launches("train_step", model.config["output_shape"][0]))
     staged = os.environ.get("BENCH_STAGED") == "1"
 
-    def chain(next_batch):
-        warm = step(next_batch())["g"]["loss_sum"].item()
-        if not math.isfinite(warm):
-            raise AssertionError(f"{label}: warm step loss {warm}")
+    def timed(next_batch, mode):
         start_window(device)
         t0 = time.perf_counter()
-        for _ in range(n_iters):
-            losses = step(next_batch())
-        loss = losses["g"]["loss_sum"].item()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            for _ in range(n_iters):
+                losses = step(next_batch())
+            loss = losses["g"]["loss_sum"].item()
         seconds = time.perf_counter() - t0
-        launches = check_launches(label, expected, device)
+        launches = check_launches(f"{label} ({mode})", expected, device)
         if not math.isfinite(loss):
-            raise AssertionError(f"{label}: loss {loss}")
-        return n_iters / seconds, staged, launches, peak_gb(device)
+            raise AssertionError(f"{label} ({mode}): loss {loss}")
+        return n_iters / seconds, launches
+
+    def chain(next_batch):
+        check = captured_against_eager(model, step, [next_batch() for _ in range(CHECK_STEPS + 1)],
+                                       label)
+        for _ in range(2):
+            warm = step(next_batch())["g"]["loss_sum"].item()
+            if not math.isfinite(warm):
+                raise AssertionError(f"{label}: warm step loss {warm}")
+        rate, launches = timed(next_batch, "graph")
+        peak = peak_gb(device)
+        eager_rate, _ = timed(next_batch, "eager")
+        return rate, eager_rate, staged, launches, peak, check
 
     if staged:
         batches = [model._batch_to_device(model._sample_host_batch(dataset, dataset))
@@ -360,14 +461,15 @@ def _timed_train_steps(model, dataset, n_iters: int, label: str):
 
 def _train_step_row(results, stage: str, model, cfg: dict, dtype_name: str, n_iters: int) -> dict:
     dataset = fake_dataset(cfg)
-    rate, staged, launches, peak = _timed_train_steps(model, dataset, n_iters,
-                                                      f"{stage} {dtype_name}")
+    rate, eager_rate, staged, launches, peak, check = _timed_train_steps(
+        model, dataset, n_iters, f"{stage} {dtype_name}")
     suffix, row_kwargs = _metric_name_parts(cfg, staged)
     device = model.device
     return _emit(results, f"{stage}_train_step_{dtype_name}{suffix}", rate, "steps/s",
                  batch=cfg["batch_size"], imgs_per_sec=rate * cfg["batch_size"], n_iters=n_iters,
-                 dtype=dtype_name, tf32=tf32_on(device), launches=launches, peak_memory_gb=peak,
-                 **row_kwargs, **device_fields(device))
+                 eager_steps_per_s=eager_rate, graph_check=check, dtype=dtype_name,
+                 tf32=tf32_on(device), launches=launches, peak_memory_gb=peak, **row_kwargs,
+                 **device_fields(device))
 
 
 def bench_stage1(results, dtype_name: str, n_iters: int = 10, config: dict = BENCH_CONFIG,

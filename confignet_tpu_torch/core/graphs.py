@@ -3,7 +3,8 @@ counterpart of ``jax.jit``'s cache.
 
 The JAX package runs each path a user waits for (serving's chunks, the
 trainer's renders and fused FID features, the encoder's chunks, each
-fine-tune iteration) as one compiled program per call shape.  The port's
+fine-tune iteration, each train step of both stages and of the LatentGAN,
+the LatentGAN's sampler) as one compiled program per call shape.  The port's
 counterpart is a CUDA graph: :class:`GraphCache` captures a function at the
 first call of a key and replays the graph at later calls, so a chunk costs
 one graph launch and the copies of its inputs instead of hundreds of kernel
@@ -13,9 +14,11 @@ The key is what jit's cache is keyed by: the caller's name for the function,
 with every Python value the function closes over (a splice's
 ``param_name``); every input's shape and dtype; and the identity and
 ``data_ptr()`` of every parameter and buffer of the modules the function
-reads; and the global settings that choose kernels at capture
-(deterministic algorithms, cuDNN's flags, TF32).  A module swapped for
-another, or a parameter rebound, so captures anew instead of replaying
+reads; the addresses of the state it updates beside them (a train step's
+optimizer moments and step counts); and the global settings that choose
+kernels at capture (deterministic algorithms, cuDNN's flags, TF32).  A
+module swapped for another, or a parameter rebound, so captures anew
+instead of replaying
 stale addresses; a graph of the same name and modules at old addresses is
 dropped then, and a module's graphs are dropped when the module is.
 Weights loaded in place (``load_state_dict``, the EMA update) keep their
@@ -27,10 +30,18 @@ builds, cuDNN plans and constants come into being there, and its outputs are
 the call's); then it is captured into the cache's memory pool with
 ``capture_error_mode="thread_local"``, so the data prefetch thread and the
 checkpoint worker cannot break a capture.  Later calls copy their inputs into
-those buffers and replay.  A replay's outputs stay in the graph's buffers
-until the next replay of any graph of the cache, so callers copy them out
-at once.  The kernel wrappers' launch counters (``ops/launches.py``) count
-each replay as the launches made into the capture.
+those buffers and replay.  A stateful step (:meth:`GraphCache.run_step`, a
+train step) is captured one call later: its first call of a key runs
+eagerly and may build state on the way (Adam's moments at a player's first
+update), so the key is taken again after it, and the second call captures
+and replays.  A function that draws random numbers names its
+``torch.Generator`` objects; each is registered with the graph before
+capture, so every replay draws the numbers the eager call would have drawn
+next, and advances the generator as far.  A replay's outputs stay in the
+graph's buffers until the next replay of any graph of the cache, so callers
+copy them out at once (:func:`copy_out`).  The kernel wrappers' launch
+counters (``ops/launches.py``) count each replay as the launches made into
+the capture.
 
 CUDA refuses to destroy a graph while a stream captures, and a capture runs
 Python that may collect garbage: a dead owner's cache, or a dead module's
@@ -49,7 +60,7 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Hashable, Iterable, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -104,6 +115,42 @@ def input_key(tensors: Sequence[torch.Tensor]) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
+def flatten(tree: Dict[str, Any]) -> Tuple[List[torch.Tensor], tuple]:
+    """A dict of tensors and lists of tensors (a train step's batch) as its
+    leaves, in key order, and its structure: each key with its list's
+    length, or None for a tensor."""
+    leaves: List[torch.Tensor] = []
+    structure = []
+    for name in sorted(tree):
+        value = tree[name]
+        if isinstance(value, (list, tuple)):
+            leaves.extend(value)
+            structure.append((name, len(value)))
+        else:
+            leaves.append(value)
+            structure.append((name, None))
+    return leaves, tuple(structure)
+
+
+def unflatten(structure: tuple, leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """The dict that :func:`flatten` took apart."""
+    out, at = {}, 0
+    for name, n in structure:
+        if n is None:
+            out[name], at = leaves[at], at + 1
+        else:
+            out[name], at = list(leaves[at:at + n]), at + n
+    return out
+
+
+def copy_out(tree):
+    """A nested dict of tensors with every tensor copied on its device: a
+    replay's outputs, taken before the next replay overwrites them."""
+    if isinstance(tree, dict):
+        return {k: copy_out(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def settings_key() -> tuple:
     """The global settings a capture bakes in: which convolution and
     reduction kernels run, and whether float32 products use TF32."""
@@ -124,6 +171,11 @@ def _module_ids(key: tuple) -> tuple:
     return tuple(module_id for module_id, _ in key[1])
 
 
+def _addresses(key: tuple) -> tuple:
+    """The module and state addresses of a key."""
+    return key[1], key[4]
+
+
 def _forget_module(cache_ref, module_id: int) -> None:
     cache = cache_ref()
     if cache is not None:
@@ -138,6 +190,7 @@ class GraphCache:
     def __init__(self, device):
         self.device = torch.device(device)
         self._entries: Dict[tuple, _Entry] = {}
+        self._warm = set()  # run_step's keys that have run once eagerly
         self._lock = threading.RLock()
         self._watched = set()
         self._pool = None
@@ -163,8 +216,9 @@ class GraphCache:
         return len(self._entries)
 
     def key(self, name: Hashable, modules: Sequence[torch.nn.Module] = (),
-            tensors: Sequence[torch.Tensor] = ()) -> tuple:
-        return (name, module_key(modules), input_key(tensors), settings_key())
+            tensors: Sequence[torch.Tensor] = (), state: Sequence[torch.Tensor] = ()) -> tuple:
+        return (name, module_key(modules), input_key(tensors), settings_key(),
+                tuple(t.data_ptr() for t in state))
 
     def captured(self, key: tuple) -> bool:
         return key in self._entries
@@ -193,6 +247,32 @@ class GraphCache:
         self.capture(key, fn, inputs, modules)
         return outputs
 
+    def run_step(self, name: Hashable, fn: Callable, tensors: Sequence[torch.Tensor],
+                 modules: Sequence[torch.nn.Module] = (),
+                 state: Callable[[], Sequence[torch.Tensor]] = tuple,
+                 generators: Sequence[torch.Generator] = ()):
+        """``fn(*tensors)`` for a stateful step (a train step): as :meth:`run`,
+        but the first call of a key runs ``fn`` eagerly, on the capture
+        stream, and the key is taken again after it (``state()``: the
+        tensors besides the modules' that ``fn`` updates in place, which the
+        first call may create); the next call of that key captures and
+        replays, later calls replay.  ``generators``: every
+        ``torch.Generator`` ``fn`` draws from.  Returns the eager call's
+        outputs or the graph's own buffers."""
+        if not self.active:
+            return fn(*(t.to(self.device) for t in tensors))
+        key = self.key(name, modules, tensors, state())
+        if key in self._entries:
+            return self.replay(key, tensors)
+        if key not in self._warm:
+            outputs = self.run_on_capture_stream(fn, *(t.to(self.device) for t in tensors))
+            with self._lock:
+                self._warm.add(self.key(name, modules, tensors, state()))
+            return outputs
+        inputs = tuple(t.to(self.device, copy=True) for t in tensors)
+        self.capture(key, fn, inputs, modules, generators)
+        return self.replay(key)
+
     def run_on_capture_stream(self, fn: Callable, *args):
         """``fn(*args)`` run directly, on the card on the capture stream (a
         warm-up, or a step whose state the graph will then hold)."""
@@ -207,11 +287,16 @@ class GraphCache:
         return out
 
     def capture(self, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor] = (),
-                modules: Sequence[torch.nn.Module] = ()) -> None:
-        """Capture ``fn(*inputs)`` as the graph of ``key``.  Capture runs
-        nothing: the launches made into it are counted at each replay."""
+                modules: Sequence[torch.nn.Module] = (),
+                generators: Sequence[torch.Generator] = ()) -> None:
+        """Capture ``fn(*inputs)`` as the graph of ``key``, with each of
+        ``generators`` registered, so a replay draws afresh from it.  Capture
+        runs nothing: the launches made into it are counted at each
+        replay."""
         stream = self._capture_stream()
         graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            graph.register_generator_state(generator)
         start = time.perf_counter()
         try:
             with _capture_lock, torch.cuda.device(self.device):
@@ -227,7 +312,8 @@ class GraphCache:
         ids = _module_ids(key)
         with self._lock:
             # the same function over the same modules at old addresses
-            self._drop(lambda k: k[0] == key[0] and _module_ids(k) == ids and k[1] != key[1])
+            self._drop(lambda k: k[0] == key[0] and _module_ids(k) == ids
+                       and _addresses(k) != _addresses(key))
             self._entries[key] = _Entry(graph, tuple(inputs), outputs, recorded_launches(counts))
             self.captures += 1
             self.capture_seconds += time.perf_counter() - start
@@ -256,6 +342,7 @@ class GraphCache:
 
     def _drop(self, which: Callable[[tuple], bool]) -> None:
         with self._lock:
+            self._warm = {k for k in self._warm if not which(k)}
             _bury([self._entries.pop(key) for key in [k for k in self._entries if which(k)]])
 
     def _capture_stream(self) -> "torch.cuda.Stream":

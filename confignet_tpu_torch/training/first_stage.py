@@ -51,7 +51,7 @@ from confignet_tpu_torch.core.async_checkpoint import CheckpointWorker
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.device import resolve_device
-from confignet_tpu_torch.core.graphs import GraphCache
+from confignet_tpu_torch.core.graphs import GraphCache, copy_out, flatten, unflatten
 from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, write_jpeg, write_png
 from confignet_tpu_torch.core.logging_utils import (
     LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
@@ -71,7 +71,8 @@ from confignet_tpu_torch.models.generator import HologanGenerator
 from confignet_tpu_torch.models.synthetic_encoder import SyntheticDataEncoder
 from confignet_tpu_torch.parallel.mesh import all_reduce_mean, process_slice, replicate
 from confignet_tpu_torch.runtime import gather_images, gather_rows
-from confignet_tpu_torch.training.state import ema_update, make_adam
+from confignet_tpu_torch.training.state import (
+    ema_update, make_adam, optimizer_constants, optimizer_state)
 
 # generator batches: generate_images' and the fused FID/KID path's
 RENDER_CHUNK = 32
@@ -578,18 +579,27 @@ class ConfigNetFirstStage:
 
     def _build_train_step(self) -> Callable[[Batch], Dict[str, Dict[str, torch.Tensor]]]:
         """``step(host_batch) -> {"d", "g", "latent_d", "synth_d"}`` loss
-        dicts (detached 0-d tensors on the device, keys sorted).  Updates the parameters,
-        the optimizers and the EMA generator in place.  A stage supplies the
-        image-D fakes, the latent-D reals and the generator player's losses
-        (:meth:`_image_d_fakes`, :meth:`_latent_d_reals`,
-        :meth:`_generator_losses`)."""
+        dicts (detached 0-d tensors on the device, keys sorted, the step's
+        own).  Updates the parameters, the optimizers and the EMA generator
+        in place.  A stage supplies the image-D fakes, the latent-D reals
+        and the generator player's losses (:meth:`_image_d_fakes`,
+        :meth:`_latent_d_reals`, :meth:`_generator_losses`).
+
+        On the card the step is a CUDA graph, as the JAX step is one jitted
+        program: ``step.graphs``, a cache of this step's own, runs the first
+        call of a batch layout eagerly (which builds Adam's state and
+        cuDNN's plans), captures the second and replays it from then on,
+        with the model's draw generator registered so each replay draws
+        afresh; the loss dicts are copied out of the graph's buffers before
+        the step returns.  A step over a mesh runs eagerly: its gradient
+        all-reduce (gloo or NCCL) is not captured."""
         if self.device.type == "cuda":
             lead_autograd_sequence()
         r1_heads = self.config.get("r1_heads", "all")
         n_d_updates, n_g_updates, multi, sub_batch = self._sub_update_plan()
+        graphs = GraphCache(self.device)
 
-        def step(host_batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
-            batch = self._batch_to_device(host_batch)
+        def update(batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
             batch_size = batch["d_real_imgs"].shape[1 if multi else 0]
 
             for u in range(n_d_updates):
@@ -635,7 +645,33 @@ class ConfigNetFirstStage:
                                          ("latent_d", latent_d_losses),
                                          ("synth_d", synth_d_losses))}
 
+        def step(host_batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
+            batch = self._batch_to_device(host_batch)
+            if self.mesh is not None:
+                return update(batch)
+            leaves, structure = flatten(batch)
+            losses = graphs.run_step(
+                self._train_step_name(structure, r1_heads),
+                lambda *tensors: update(unflatten(structure, tensors)), leaves,
+                self._train_step_modules(), lambda: optimizer_state(self.optimizers),
+                (self._draws,))
+            return copy_out(losses)
+
+        step.graphs = graphs
         return step
+
+    def _train_step_name(self, structure: tuple, r1_heads: str) -> tuple:
+        """The train step's name in its graph cache: the batch's structure
+        (:func:`graphs.flatten`), the R1 heads, the sub-update plan, the
+        compute dtype and the optimizers' hyperparameters (the capture
+        holds them as constants)."""
+        return ("train_step", structure, r1_heads, self._n_player_updates(),
+                self.config.get("compute_dtype"), optimizer_constants(self.optimizers))
+
+    def _train_step_modules(self) -> List[torch.nn.Module]:
+        """Every module a train step reads: the weight trees and the
+        perceptual loss's network."""
+        return [getattr(self, tree) for tree in self.WEIGHT_TREES] + [self.perceptual_loss]
 
     # ------------------------------------------------------------------
     # Host-side batch assembly
@@ -847,6 +883,9 @@ class ConfigNetFirstStage:
             self._train_loop(prefetcher, start_step, n_steps, output_dir)
         finally:
             prefetcher.close()
+            # the step goes with the loop, and its graphs' memory (on the
+            # card a step's activations) with it; a later train() builds anew
+            self._train_step_fn = None
             if self._checkpoint_worker is not None:
                 worker, self._checkpoint_worker = self._checkpoint_worker, None
                 worker.close()  # runs the pending jobs, re-raises a failure

@@ -8,7 +8,11 @@ weights across.  One train step (:meth:`LatentGAN._build_train_step`) runs
 the JAX step's order (latent_gan.py:121-167): the D update with R1 on
 G(noise), the G update against the already-updated D, then the EMA of G.
 Noise comes from a ``torch.Generator`` on the model's device through
-:meth:`LatentGAN._sample_noise`, which a caller may override to pin it.  The
+:meth:`LatentGAN._sample_noise`, which a caller may override to pin it.  On
+the card the step and the EMA generator's sampling run as captured CUDA
+graphs (``core/graphs.py``), as the JAX package jits both: the step's
+first call eagerly, every later one a replay that draws its noise afresh;
+the sampler a chunk of ``SAMPLE_CHUNK`` latents a replay.  The
 MLPs are plain torch: the JAX package runs them as XLA, with no Pallas
 kernel.  :meth:`LatentGAN.train` (latent_gan.py:184-285) embeds the training
 set once, keeps the embeddings on the device, fetches the losses a window
@@ -28,6 +32,7 @@ import torch
 from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.core.graphs import GraphCache, copy_out
 from confignet_tpu_torch.core.images import build_image_matrix
 from confignet_tpu_torch.core.logging_utils import LossFlusher, TensorBoardWriter
 from confignet_tpu_torch.core.model_io import (
@@ -36,7 +41,8 @@ from confignet_tpu_torch.core.model_io import (
 from confignet_tpu_torch.losses.gan import (
     compute_latent_discriminator_loss, gan_g_loss, lead_autograd_sequence)
 from confignet_tpu_torch.models.blocks import MLP
-from confignet_tpu_torch.training.state import ema_update, make_adam
+from confignet_tpu_torch.training.state import (
+    ema_update, make_adam, optimizer_constants, optimizer_state)
 
 DEFAULT_CONFIG: Dict[str, Any] = {
     "model_type": "LatentGAN",
@@ -56,12 +62,16 @@ DEFAULT_CONFIG: Dict[str, Any] = {
 # the parameter trees of the checkpoint (latent_gan.py:308-314); G and D are
 # the two players, each under its own Adam
 WEIGHT_TREES = ("generator", "generator_smoothed", "discriminator")
+# the sampler's device batch: each request is cut into chunks of this many
+# latents, the last padded, one captured graph a chunk
+SAMPLE_CHUNK = 256
 
 Losses = Dict[str, Dict[str, torch.Tensor]]
 
 
 class LatentGAN:
     MODEL_TYPE = "LatentGAN"
+    WEIGHT_TREES = WEIGHT_TREES
 
     def __init__(self, config: Dict[str, Any], device: Optional[Union[str, torch.device]] = None):
         self.config = merge_configs(DEFAULT_CONFIG, config)
@@ -76,6 +86,8 @@ class LatentGAN:
         self.metrics: Dict[str, list] = {}
         self._inception_metric_object = None
         self._train_step_fn: Optional[Callable[[torch.Tensor], Losses]] = None
+        # the sampler's captured graphs (on the card)
+        self._graphs = GraphCache(self.device)
 
         self.initialize_network()
 
@@ -125,13 +137,17 @@ class LatentGAN:
 
     def _build_train_step(self) -> Callable[[torch.Tensor], Losses]:
         """``step(real_embeddings) -> {"d": ..., "g": ...}`` loss dicts
-        (detached 0-d tensors on the device); updates G, D, their Adams and
-        the EMA generator in place."""
+        (detached 0-d tensors on the device, the step's own); updates G, D,
+        their Adams and the EMA generator in place.  On the card the step
+        is a CUDA graph of a cache of its own (``step.graphs``): the first
+        call runs eagerly, the second captures, later calls replay, each
+        drawing fresh noise from the model's registered generator."""
         if self.device.type == "cuda":
             lead_autograd_sequence()
         batch_size = self.config["batch_size"]
+        graphs = GraphCache(self.device)
 
-        def step(real_embeddings: torch.Tensor) -> Losses:
+        def update(real_embeddings: torch.Tensor) -> Losses:
             # the discriminator, on G(noise) of the pre-step generator
             with torch.no_grad():
                 fake_embeddings = self.generator(self._sample_noise(batch_size))
@@ -150,6 +166,14 @@ class LatentGAN:
             return {"d": {k: v.detach() for k, v in sorted(d_losses.items())},
                     "g": {k: v.detach() for k, v in sorted(g_losses.items())}}
 
+        def step(real_embeddings: torch.Tensor) -> Losses:
+            losses = graphs.run_step(
+                ("latent_gan_step", batch_size, optimizer_constants(self.optimizers)), update,
+                (real_embeddings,), [getattr(self, tree) for tree in WEIGHT_TREES],
+                lambda: optimizer_state(self.optimizers), (self._draws,))
+            return copy_out(losses)
+
+        step.graphs = graphs
         return step
 
     # ------------------------------------------------------------------
@@ -273,9 +297,19 @@ class LatentGAN:
 
     @torch.inference_mode()
     def generate_latents_smoothed(self, input_latents) -> np.ndarray:
-        """The EMA generator's latents for the given input noise (float32)."""
-        noise = torch.from_numpy(np.asarray(input_latents, np.float32)).to(self.device)
-        return self.generator_smoothed(noise).float().cpu().numpy()
+        """The EMA generator's latents for the given input noise (float32),
+        in chunks of ``SAMPLE_CHUNK`` rows (the last padded with zeros), each
+        on the card a replay of the chunk's captured graph."""
+        noise = np.asarray(input_latents, np.float32)
+        out = []
+        for start in range(0, noise.shape[0], SAMPLE_CHUNK):
+            piece = noise[start:start + SAMPLE_CHUNK]
+            chunk = np.zeros((SAMPLE_CHUNK,) + noise.shape[1:], np.float32)
+            chunk[:piece.shape[0]] = piece
+            latents = self._graphs.run("generate_latents", self.generator_smoothed,
+                                       (torch.from_numpy(chunk),), (self.generator_smoothed,))
+            out.append(latents[:piece.shape[0]].float().cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0, self.config["latent_dim"]), np.float32)
 
     def generate_latents(self, n_samples: int, truncation: float = 1.0) -> np.ndarray:
         """Sample latents; ``truncation`` scales the input noise

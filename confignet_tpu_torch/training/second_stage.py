@@ -604,15 +604,15 @@ class ConfigNet(ConfigNetFirstStage):
 
     @staticmethod
     def _fine_tune_optimizer(generator: torch.nn.Module, variables: Dict[str, torch.Tensor],
-                             force_neutral_expression: bool) -> torch.optim.Adam:
+                             force_neutral_expression: bool) -> torch.optim.Optimizer:
         """A fresh Adam over the generator copy and the variables; with a
         forced neutral expression the ``expr`` segment is left out, which is
         optax's ``multi_transform`` with ``set_to_zero`` (second_stage.py:714-720).
-        On the card it keeps its step counts on the device, so an Adam step
-        can be captured."""
+        It keeps its step counts on the device, so an Adam step can be
+        captured."""
         frozen = ("expr",) if force_neutral_expression else ()
         params = list(generator.parameters()) + [v for k, v in variables.items() if k not in frozen]
-        return make_fine_tune_adam(params, capturable=params[0].is_cuda)
+        return make_fine_tune_adam(params)
 
     @staticmethod
     def _fine_tune_embeddings(variables: Dict[str, torch.Tensor], n_imgs: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ its launch accounting, the server's per-``param_name`` pipelines against the
 JAX server, and the fine-tune's buffers, which are kept per image count and
 reset in place at every call.  The tests marked ``gpu`` hold each captured
 path against the same call run eagerly (``graphs.eager()``) on the card,
-bit for bit, with the kernels' launches counted through the replays; they
-skip without a CUDA device.  Only the JAX comparison imports JAX (inside
+bit for bit, with the kernels' launches counted through the replays (a
+stage-1 and a LatentGAN train step among them, over 3 steps whose draws
+differ); they skip without a CUDA device.  Only the JAX comparison imports JAX (inside
 the test), so on a machine without it:
 python -m pytest --noconftest -m gpu tests/test_torch_graphs.py
 """
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import TINY_FIRST_STAGE_CONFIG
+from helpers import FakeDataset, TINY_FIRST_STAGE_CONFIG
 from confignet_tpu_torch.core import graphs
 from confignet_tpu_torch.core.graphs import GraphCache
 from confignet_tpu_torch.ops import cuda_build, launches
@@ -420,3 +421,57 @@ def test_card_capture_survives_a_dead_owners_collection():
     finally:
         if enabled:
             gc.enable()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _captured_steps(model, step, inputs, label):
+    """bench_train.captured_against_eager: the steps on ``inputs[1:]``
+    through the graph equal to the eager steps bit for bit; returns the
+    check's record."""
+    from confignet_tpu_torch.apps import bench_train
+
+    return bench_train.captured_against_eager(model, step, inputs, label)
+
+
+@pytest.mark.gpu
+def test_card_stage1_step_replays_equal_eager():
+    """A stage-1 train step: 3 steps through its graph (the first captures)
+    against 3 eager steps from the same state and draws, under
+    deterministic algorithms: every parameter, Adam moment and count, the
+    EMA generator, every loss and the draw generator after each step equal,
+    the draws moving at every step, with a train step's launches a replay."""
+    from confignet_tpu_torch.training.first_stage import ConfigNetFirstStage
+
+    _need_card()
+    model = ConfigNetFirstStage(dict(TINY_FIRST_STAGE_CONFIG, seed=4))
+    dataset = FakeDataset(n_images=8, img_size=128)
+    step = model._build_train_step()
+    batches = [model._sample_host_batch(dataset, dataset) for _ in range(4)]
+    check = _captured_steps(model, step, batches, "stage-1 step")
+    assert check["launches"] == launches.scaled(3, launches.unit_launches("train_step", 128))
+    assert len(step.graphs) == 1
+    losses = [step(b)["d"]["loss_sum"].item() for b in batches[:2]]
+    assert losses[0] != losses[1]
+
+
+@pytest.mark.gpu
+def test_card_latent_gan_step_replays_equal_eager():
+    """The LatentGAN step, as the stage-1 step above, on one batch of
+    embeddings at every step: only the draws differ between its steps, and
+    so do their losses."""
+    from confignet_tpu_torch.training.latent_gan import LatentGAN
+
+    _need_card()
+    gan = LatentGAN({"latent_dim": 12, "batch_size": 8})
+    real = torch.from_numpy(np.random.default_rng(5).normal(size=(8, 12)).astype(np.float32))
+    step = gan._build_train_step()
+    check = _captured_steps(gan, step, [real.cuda() for _ in range(4)], "latent GAN step")
+    assert check["steps"] == 3 and check["launches"] == (0, 0, 0, 0)
+    replayed = [step(real.cuda())["g"]["loss_sum"].item() for _ in range(2)]
+    assert replayed[0] != replayed[1]

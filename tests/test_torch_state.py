@@ -6,7 +6,8 @@ the CPU.
   parameters and a seeded sequence of 6 gradients whose scale rises and
   falls, so the running maximum of the second moment outlasts the moment
   itself: parameters held to rtol 1e-6 after every step, the optimizer's
-  moments and running maximum too.
+  moments, running maximum and step count (a tensor) too.
+- The default: the port's ``OptaxAdam`` against ``optax.adam`` alike.
 - One stage-1 step of TINY_FIRST_STAGE_CONFIG with ``amsgrad: true`` through
   both packages, at tests/test_torch_train.py's tolerances, and the running
   maximum among the tensors a mesh replicates.
@@ -22,7 +23,7 @@ from test_torch_train import _player_trees, check_ema, check_gradients, check_lo
 from confignet_tpu_torch.core.model_io import export_jax_tensors
 from confignet_tpu_torch.training import first_stage
 from confignet_tpu_torch.training.first_stage import PLAYER_TREES
-from confignet_tpu_torch.training.state import OptaxAmsgrad, make_adam
+from confignet_tpu_torch.training.state import OptaxAdam, OptaxAmsgrad, make_adam
 
 torch.set_num_threads(1)
 
@@ -40,18 +41,13 @@ def amsgrad_case(seed):
     return params, grads
 
 
-@pytest.mark.parametrize("b1", [0.0, 0.5])
-@pytest.mark.parametrize("lr", [1e-2, 4e-4])
-def test_amsgrad_matches_optax(lr, b1):
-    """optax.amsgrad(lr, b1, b2=0.9, eps=1e-7) against make_adam's
-    ``amsgrad`` optimizer, step by step (b1 0.0 is the players' config)."""
-    params, grads = amsgrad_case(int(lr * 1e4) + int(b1 * 10))
-    tx = optax.amsgrad(lr, b1=b1, b2=0.9, eps=1e-7)
+def hold_to_optax(tx, optimizer, params, grads, tparams, fields):
+    """Step ``optimizer`` and optax's ``tx`` through the same gradients from
+    the same parameters: after every step the parameters, the step count
+    (a float32 tensor on the parameters' device) and each state tensor in
+    ``fields`` ({torch key: optax field}) within rtol 1e-6."""
     jparams = [jnp.asarray(p) for p in params]
     jstate = tx.init(jparams)
-    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
-    optimizer = make_adam(tparams, {"lr": lr, "beta_1": b1, "beta_2": 0.9, "amsgrad": True})
-    assert isinstance(optimizer, OptaxAmsgrad)
     for step, grad in enumerate(grads, 1):
         updates, jstate = tx.update([jnp.asarray(g) for g in grad], jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
@@ -63,13 +59,45 @@ def test_amsgrad_matches_optax(lr, b1):
             np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6,
                                        err_msg=f"step {step}, parameter {i}")
             state = optimizer.state[got]
+            count = state["step"]
+            assert torch.is_tensor(count) and count.dtype == torch.float32
+            assert count.device == got.device and count.shape == ()
             assert state["step"] == step == int(jstate[0].count)
-            for key, field in (("exp_avg", "mu"), ("exp_avg_sq", "nu"), ("max_exp_avg_sq", "nu_max")):
+            for key, field in fields.items():
                 np.testing.assert_allclose(state[key].numpy(), np.asarray(getattr(jstate[0], field)[i]),
                                            rtol=1e-6, err_msg=f"step {step}, {key} {i}")
+
+
+@pytest.mark.parametrize("b1", [0.0, 0.5])
+@pytest.mark.parametrize("lr", [1e-2, 4e-4])
+def test_amsgrad_matches_optax(lr, b1):
+    """optax.amsgrad(lr, b1, b2=0.9, eps=1e-7) against make_adam's
+    ``amsgrad`` optimizer, step by step (b1 0.0 is the players' config)."""
+    params, grads = amsgrad_case(int(lr * 1e4) + int(b1 * 10))
+    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    optimizer = make_adam(tparams, {"lr": lr, "beta_1": b1, "beta_2": 0.9, "amsgrad": True})
+    assert isinstance(optimizer, OptaxAmsgrad)
+    hold_to_optax(optax.amsgrad(lr, b1=b1, b2=0.9, eps=1e-7), optimizer, params, grads, tparams,
+                  {"exp_avg": "mu", "exp_avg_sq": "nu", "max_exp_avg_sq": "nu_max"})
     # the maximum outlasted the moment (GRADIENT_SCALES falls after step 2)
     state = optimizer.state[tparams[0]]
     assert (state["max_exp_avg_sq"] > state["exp_avg_sq"] / (1 - 0.9 ** len(grads))).any()
+
+
+@pytest.mark.parametrize("b1", [0.0, 0.5])
+@pytest.mark.parametrize("lr", [1e-2, 4e-4])
+def test_adam_matches_optax(lr, b1):
+    """optax.adam(lr, b1, b2=0.9, eps=1e-7) against make_adam's default
+    optimizer over the same six gradients: the players' optimizer, whose
+    step count lives in a tensor so that a captured train step replays
+    every later step's bias corrections."""
+    params, grads = amsgrad_case(int(lr * 1e4) + int(b1 * 10) + 1)
+    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    optimizer = make_adam(tparams, {"lr": lr, "beta_1": b1, "beta_2": 0.9})
+    assert isinstance(optimizer, OptaxAdam) and not isinstance(optimizer, OptaxAmsgrad)
+    hold_to_optax(optax.adam(lr, b1=b1, b2=0.9, eps=1e-7), optimizer, params, grads, tparams,
+                  {"exp_avg": "mu", "exp_avg_sq": "nu"})
+    assert "max_exp_avg_sq" not in optimizer.state[tparams[0]]
 
 
 def test_amsgrad_skips_parameters_without_gradient():
