@@ -1,0 +1,148 @@
+"""ResNet50 backbone, Keras-v1 layout (counterpart of
+``confignet_tpu/models/backbones/resnet.py``; reference use:
+confignet/dnn_models/real_encoder.py:13).
+
+- stem: pad 3, VALID 7x7/2 conv (64) -> norm -> ReLU -> 3x3/2 max pool
+  over a -inf pad of 1;
+- 4 stages of bottleneck blocks [3, 4, 6, 3], widths (64, 128, 256, 512),
+  expansion 4; the first block of each stage has a projection shortcut and
+  stages 2-4 put their stride on the block's FIRST 1x1 conv (Keras v1);
+- every conv has a bias; kernels are flax's ``he_normal``;
+- norm "frozen" is inference-mode batch norm (eps 1.001e-5), "group" is
+  flax ``GroupNorm(min(32, C))`` with eps 1e-6.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from benchmark.reference.constants import device_constant
+from benchmark.reference.blocks import Conv2d
+
+# the BGR ImageNet means of Keras' 'caffe' preprocessing
+IMAGENET_BGR_MEAN = (103.939, 116.779, 123.68)
+
+
+class FrozenBatchNorm(nn.Module):
+    """y = gamma * (x - mean) / sqrt(var + eps) + beta with frozen statistics.
+    The statistics are parameters, as in the JAX tree."""
+
+    def __init__(self, features: int, eps: float = 1.001e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.empty(features))
+        self.beta = nn.Parameter(torch.empty(features))
+        self.moving_mean = nn.Parameter(torch.empty(features))
+        self.moving_variance = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for p, value in ((self.gamma, 1.0), (self.beta, 0.0),
+                         (self.moving_mean, 0.0), (self.moving_variance, 1.0)):
+            nn.init.constant_(p, value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.moving_variance + self.eps) * self.gamma
+        return x * inv + (self.beta - self.moving_mean * inv)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups)`` on (B, H, W, C): statistics in
+    float32, eps 1e-6, parameters ``scale``/``bias``."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.group_norm(x.float().movedim(-1, 1), self.num_groups, self.scale, self.bias,
+                           self.eps)
+        return out.movedim(1, -1)
+
+
+def _resnet_norm(norm: str, features: int) -> nn.Module:
+    if norm == "group":
+        return GroupNorm(min(32, features), features)
+    if norm != "frozen":
+        raise ValueError(f"unknown resnet norm {norm!r} (frozen|group)")
+    return FrozenBatchNorm(features)
+
+
+class BottleneckBlock(nn.Module):
+    def __init__(self, in_features: int, width: int, stride: int = 1,
+                 project_shortcut: bool = False, dtype: Optional[torch.dtype] = None,
+                 norm: str = "frozen"):
+        super().__init__()
+
+        def conv(cin, cout, k, s=1):
+            return Conv2d(cin, cout, (k, k), stride=s, dtype=dtype, kernel_init="he_normal")
+
+        self.project_shortcut = project_shortcut
+        if project_shortcut:
+            self.shortcut_conv = conv(in_features, width * 4, 1, stride)
+            self.shortcut_bn = _resnet_norm(norm, width * 4)
+        self.conv1 = conv(in_features, width, 1, stride)
+        self.bn1 = _resnet_norm(norm, width)
+        self.conv2 = conv(width, width, 3)
+        self.bn2 = _resnet_norm(norm, width)
+        self.conv3 = conv(width, width * 4, 1)
+        self.bn3 = _resnet_norm(norm, width * 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        if self.project_shortcut:
+            shortcut = self.shortcut_bn(self.shortcut_conv(x))
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return torch.relu(y + shortcut)
+
+
+class ResNet50(nn.Module):
+    """Returns globally average-pooled 2048-dim features of (B, H, W, 3)."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = None,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 stage_widths: Sequence[int] = (64, 128, 256, 512), norm: str = "frozen"):
+        super().__init__()
+        self.stem_conv = Conv2d(3, 64, (7, 7), stride=2, padding="VALID", dtype=dtype,
+                                kernel_init="he_normal")
+        self.stem_bn = _resnet_norm(norm, 64)
+        self.block_names = []
+        features = 64
+        for stage, (n_blocks, width) in enumerate(zip(stage_sizes, stage_widths)):
+            for block in range(n_blocks):
+                name = f"stage{stage + 1}_block{block + 1}"
+                self.add_module(name, BottleneckBlock(
+                    features, width, stride=2 if (stage > 0 and block == 0) else 1,
+                    project_shortcut=(block == 0), dtype=dtype, norm=norm))
+                self.block_names.append(name)
+                features = width * 4
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x, (0, 0, 3, 3, 3, 3))
+        x = torch.relu(self.stem_bn(self.stem_conv(x)))
+        x = F.pad(x, (0, 0, 1, 1, 1, 1), value=float("-inf"))
+        x = F.max_pool2d(x.movedim(-1, 1), 3, stride=2).movedim(1, -1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x.mean(dim=(1, 2))
+
+
+def resnet50_preprocess(images_unit_range: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> Keras ResNet50 'caffe' preprocessing: scale to [0, 255],
+    reverse the channels, subtract the BGR ImageNet means."""
+    x = (images_unit_range + 1.0) * 127.5
+    x = x.flip(-1)
+    return x - device_constant("imagenet_bgr_mean", lambda: IMAGENET_BGR_MEAN, x.dtype, x.device)
