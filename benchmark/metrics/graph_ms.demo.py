@@ -1,0 +1,6 @@
+"""graph_ms.demo: median host time of a frame in the graph cache outside device work (ms)."""
+from benchmark.harness.program import median_host_ms
+
+
+def read(ctx):
+    return median_host_ms(ctx, "demo", "confignet.graph.")

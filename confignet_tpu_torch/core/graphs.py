@@ -51,6 +51,11 @@ ends, and are destroyed then.
 A capture or a replay that fails raises; nothing falls back to eager on the
 card.  On the CPU, and on the card inside :func:`eager`, every function runs
 directly.
+
+While a profiler records, a call on the card records the spans of
+``core/tracing.py``: its key, the copies into the graph's inputs, the
+replay, and a key's first calls (whose host seconds the
+``graph.first_call_s`` counter sums, profiled or not).
 """
 from __future__ import annotations
 
@@ -64,6 +69,7 @@ from typing import Any, Callable, Dict, Hashable, Iterable, List, Sequence, Tupl
 
 import torch
 
+from confignet_tpu_torch.core.tracing import count, span
 from confignet_tpu_torch.ops import cuda_build
 from confignet_tpu_torch.ops.launches import add_launches, recorded_launches
 
@@ -102,6 +108,16 @@ def _release_buried() -> None:
     """Destroy the graphs dropped during a capture, once none is open."""
     while _buried and not _capture_lock.locked():
         _buried.pop()
+
+
+@contextlib.contextmanager
+def _first_call():
+    """A key's first calls: a ``confignet.graph.first_call`` span, its host
+    seconds added to the ``graph.first_call_s`` counter."""
+    start = time.perf_counter()
+    with span("confignet.graph.first_call"):
+        yield
+    count("graph.first_call_s", time.perf_counter() - start)
 
 
 def module_key(modules: Iterable[torch.nn.Module]) -> tuple:
@@ -239,12 +255,14 @@ class GraphCache:
         reads.  A replay returns the graph's own output buffers."""
         if not self.active:
             return fn(*(t.to(self.device) for t in tensors))
-        key = self.key(name, modules, tensors)
+        with span("confignet.graph.key"):
+            key = self.key(name, modules, tensors)
         if key in self._entries:
             return self.replay(key, tensors)
-        inputs = tuple(t.to(self.device, copy=True) for t in tensors)
-        outputs = self.run_on_capture_stream(fn, *inputs)
-        self.capture(key, fn, inputs, modules)
+        with _first_call():
+            inputs = tuple(t.to(self.device, copy=True) for t in tensors)
+            outputs = self.run_on_capture_stream(fn, *inputs)
+            self.capture(key, fn, inputs, modules)
         return outputs
 
     def run_step(self, name: Hashable, fn: Callable, tensors: Sequence[torch.Tensor],
@@ -261,16 +279,18 @@ class GraphCache:
         outputs or the graph's own buffers."""
         if not self.active:
             return fn(*(t.to(self.device) for t in tensors))
-        key = self.key(name, modules, tensors, state())
+        with span("confignet.graph.key"):
+            key = self.key(name, modules, tensors, state())
         if key in self._entries:
             return self.replay(key, tensors)
-        if key not in self._warm:
-            outputs = self.run_on_capture_stream(fn, *(t.to(self.device) for t in tensors))
-            with self._lock:
-                self._warm.add(self.key(name, modules, tensors, state()))
-            return outputs
-        inputs = tuple(t.to(self.device, copy=True) for t in tensors)
-        self.capture(key, fn, inputs, modules, generators)
+        with _first_call():
+            if key not in self._warm:
+                outputs = self.run_on_capture_stream(fn, *(t.to(self.device) for t in tensors))
+                with self._lock:
+                    self._warm.add(self.key(name, modules, tensors, state()))
+                return outputs
+            inputs = tuple(t.to(self.device, copy=True) for t in tensors)
+            self.capture(key, fn, inputs, modules, generators)
         return self.replay(key)
 
     def run_on_capture_stream(self, fn: Callable, *args):
@@ -326,10 +346,12 @@ class GraphCache:
         """Copy ``tensors`` into the graph's inputs, replay it on the current
         stream and return its outputs."""
         entry = self._entries[key]
-        for static, tensor in zip(entry.inputs, tensors):
-            static.copy_(tensor)
-        entry.graph.replay()
-        add_launches(entry.launches)
+        with span("confignet.io.h2d"):
+            for static, tensor in zip(entry.inputs, tensors):
+                static.copy_(tensor)
+        with span("confignet.graph.launch"):
+            entry.graph.replay()
+            add_launches(entry.launches)
         return entry.outputs
 
     def launches(self, key: tuple) -> Tuple[int, ...]:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from confignet_tpu_torch.core.device import resolve_device
+from confignet_tpu_torch.core.tracing import span
 
 
 def _map_leaves(batch: Any, fn: Callable[[Any], torch.Tensor]) -> Any:
@@ -125,16 +126,17 @@ class BatchPrefetcher:
             raise self._error
         if self._stop.is_set():
             raise RuntimeError("BatchPrefetcher is closed")
-        item = self._queue.get()
-        if item is self._SENTINEL:
-            assert self._error is not None
-            raise self._error
-        batch, event = item
-        if event is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(event)
-            for tensor in _leaves(batch):
-                tensor.record_stream(stream)
+        with span("confignet.data.wait"):
+            item = self._queue.get()
+            if item is self._SENTINEL:
+                assert self._error is not None
+                raise self._error
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(event)
+                for tensor in _leaves(batch):
+                    tensor.record_stream(stream)
         return batch
 
     def close(self) -> None:

@@ -20,6 +20,7 @@ import torch
 
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache
+from confignet_tpu_torch.core.tracing import count, span
 from confignet_tpu_torch.parallel.mesh import all_gather_rows, replicate, shard_batch
 
 
@@ -108,21 +109,26 @@ class ConfigNetServer:
         (the graph) runs on this rank's rows of each chunk, and its outputs
         are gathered from every rank outside it."""
         n = arrays[0].shape[0]
+        count("rows.requested", n)
+        count("rows.run", -(-n // self.chunk) * self.chunk)
         outs = []
         for start in range(0, n, self.chunk):
-            pieces = []
-            for arr in arrays:
-                piece = arr[start:start + self.chunk]
-                pad = self.chunk - piece.shape[0]
-                if pad:
-                    piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
-                piece = np.ascontiguousarray(piece)
-                pieces.append(torch.from_numpy(piece) if self.mesh is None
-                              else shard_batch(self.mesh, piece))
+            with span("confignet.io.inputs"):
+                pieces = []
+                for arr in arrays:
+                    piece = arr[start:start + self.chunk]
+                    pad = self.chunk - piece.shape[0]
+                    if pad:
+                        piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
+                    piece = np.ascontiguousarray(piece)
+                    pieces.append(torch.from_numpy(piece) if self.mesh is None
+                                  else shard_batch(self.mesh, piece))
             out = self._graphs.run(key, fn, pieces + list(extra), modules)
-            outs.append(tuple(_host(all_gather_rows(self.mesh, o))
-                              for o in (out if isinstance(out, tuple) else (out,))))
-        result = tuple(np.concatenate([o[i] for o in outs])[:n] for i in range(len(outs[0])))
+            with span("confignet.io.d2h"):
+                outs.append(tuple(_host(all_gather_rows(self.mesh, o))
+                                  for o in (out if isinstance(out, tuple) else (out,))))
+        with span("confignet.io.join"):
+            result = tuple(np.concatenate([o[i] for o in outs])[:n] for i in range(len(outs[0])))
         return result if len(result) > 1 else result[0]
 
     def encode(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

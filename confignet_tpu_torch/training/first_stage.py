@@ -52,6 +52,7 @@ from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache, copy_out, flatten, unflatten
+from confignet_tpu_torch.core.tracing import count, span
 from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, write_jpeg, write_png
 from confignet_tpu_torch.core.logging_utils import (
     LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
@@ -1143,15 +1144,16 @@ class ConfigNetFirstStage:
 
     @torch.inference_mode()
     def set_facemodel_param_in_latents(self, latents, param_name: str, param_value) -> np.ndarray:
-        param_value = np.asarray(param_value, dtype=np.float32)
-        if param_value.ndim == 1:
-            param_value = param_value[np.newaxis]
-        encoded = self._inference_synthetic_encoder().encode_single_param(
-            param_name, torch.from_numpy(param_value).to(self.device))
-        idxs = self.get_facemodel_param_idxs_in_latent(param_name)
-        new_latents = np.copy(latents)
-        new_latents[:, list(idxs)] = encoded.float().cpu().numpy().astype(new_latents.dtype)
-        return new_latents
+        with span("confignet.splice"):
+            param_value = np.asarray(param_value, dtype=np.float32)
+            if param_value.ndim == 1:
+                param_value = param_value[np.newaxis]
+            encoded = self._inference_synthetic_encoder().encode_single_param(
+                param_name, torch.from_numpy(param_value).to(self.device))
+            idxs = self.get_facemodel_param_idxs_in_latent(param_name)
+            new_latents = np.copy(latents)
+            new_latents[:, list(idxs)] = encoded.float().cpu().numpy().astype(new_latents.dtype)
+            return new_latents
 
     def fit_facemodel_expression_params_to_latent(
             self, latent, unused_expr_idxs=None, param_name: str = "blendshape_values",
@@ -1229,20 +1231,25 @@ class ConfigNetFirstStage:
         def render(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
             return uint8_from_unit_range(gen(latents, rotations))
 
+        count("rows.requested", n)
+        count("rows.run", -(-n // chunk) * chunk)
         outputs: List[np.ndarray] = []
         for start in range(0, n, chunk):
-            lat = latent_vectors[start:start + chunk]
-            rot = rotations[start:start + chunk]
-            pad = chunk - lat.shape[0]
-            if pad:
-                lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
-                rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
+            with span("confignet.io.inputs"):
+                lat = latent_vectors[start:start + chunk]
+                rot = rotations[start:start + chunk]
+                pad = chunk - lat.shape[0]
+                if pad:
+                    lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
+                    rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
             imgs = graphs.run("generate_images", render, (torch.from_numpy(lat), torch.from_numpy(rot)),
-                              (gen,)).cpu().numpy()
-            outputs.append(imgs[:chunk - pad])
+                              (gen,))
+            with span("confignet.io.d2h"):
+                outputs.append(imgs.cpu().numpy()[:chunk - pad])
         if not outputs:
             return np.zeros((0,), np.uint8)
-        return np.concatenate(outputs, axis=0)
+        with span("confignet.io.join"):
+            return np.concatenate(outputs, axis=0)
 
     def _get_metric_features_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
         """The fused generator -> InceptionV3 path of FID/KID

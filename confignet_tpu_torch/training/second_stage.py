@@ -45,6 +45,7 @@ from confignet_tpu_torch.core.images import (
     batched_hflip, build_image_matrix, uint8_to_unit_range, unit_range_to_uint8, write_png)
 from confignet_tpu_torch.core.model_io import export_jax_params
 from confignet_tpu_torch.core.pretrained import backbone_path, maybe_load
+from confignet_tpu_torch.core.tracing import count, span
 from confignet_tpu_torch.losses.gan import eye_loss, gan_d_loss, gan_g_loss, normalized_latent_regression_loss
 from confignet_tpu_torch.losses.perceptual import PerceptualLoss
 from confignet_tpu_torch.models.backbones.loader import load_into, load_keras_h5_mapped
@@ -411,27 +412,33 @@ class ConfigNet(ConfigNetFirstStage):
     @torch.inference_mode()
     def encode_images(self, input_images, batch_chunk: int = 32) -> Tuple[np.ndarray, np.ndarray]:
         """Images (uint8 or [-1, 1] float) -> float32 (latents, rotations)."""
-        input_images = np.asarray(input_images)
-        if input_images.dtype == np.uint8:
-            input_images = input_images.astype(np.float32) / 127.5 - 1.0
-        input_images = input_images.astype(np.float32)
-        if input_images.ndim == 3:
-            input_images = input_images[np.newaxis]
+        with span("confignet.io.inputs"):
+            input_images = np.asarray(input_images)
+            if input_images.dtype == np.uint8:
+                input_images = input_images.astype(np.float32) / 127.5 - 1.0
+            input_images = input_images.astype(np.float32)
+            if input_images.ndim == 3:
+                input_images = input_images[np.newaxis]
 
         encoder = self._inference_real_encoder()
         graphs = self._inference_graphs()
         n = input_images.shape[0]
         chunk = min(batch_chunk, max(n, 1))
+        count("rows.requested", n)
+        count("rows.run", -(-n // chunk) * chunk)
         lat_out, rot_out = [], []
         for start in range(0, n, chunk):
-            imgs = input_images[start:start + chunk]
-            pad = chunk - imgs.shape[0]
-            if pad:
-                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
+            with span("confignet.io.inputs"):
+                imgs = input_images[start:start + chunk]
+                pad = chunk - imgs.shape[0]
+                if pad:
+                    imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
             lat, rot = graphs.run("encode_images", encoder, (torch.from_numpy(imgs),), (encoder,))
-            lat_out.append(lat.float().cpu().numpy()[:chunk - pad])
-            rot_out.append(rot.float().cpu().numpy()[:chunk - pad])
-        return np.concatenate(lat_out), np.concatenate(rot_out)
+            with span("confignet.io.d2h"):
+                lat_out.append(lat.float().cpu().numpy()[:chunk - pad])
+                rot_out.append(rot.float().cpu().numpy()[:chunk - pad])
+        with span("confignet.io.join"):
+            return np.concatenate(lat_out), np.concatenate(rot_out)
 
     # ------------------------------------------------------------------
     # One-shot fine-tuning (reference: confignet_second_stage.py:321-403)
