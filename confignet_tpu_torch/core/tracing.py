@@ -31,9 +31,12 @@ replay) and never in the kernels' wrappers.  Names begin ``confignet.``:
 A counter keeps a process-wide total (:data:`totals`) and a second tally
 (:data:`traced`) counted only while a profiler records on the calling
 thread: a benchmark's traced slice.  Counters: ``rows.requested`` and
-``rows.run`` (rows asked for, and rows the chunks ran with their padding)
-and ``graph.first_call_s`` (the host seconds of the ``graph.first_call``
-spans).
+``rows.run`` (rows asked for, and rows the chunks ran with their padding),
+``graph.first_call_s`` (the host seconds of the ``graph.first_call``
+spans) and ``conv.double_backward`` (second-order calls of the
+discriminator trunks' convolutions, ops/conv_double_backward.py: 1 a conv
+on each R1 head's path; it ticks on the host at an eager step and at a
+capture, never at a replay, so tests read it and no benchmark metric does).
 """
 from __future__ import annotations
 

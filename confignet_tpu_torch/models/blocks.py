@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from confignet_tpu_torch.core.initializers import init_kernel_
-from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last, promote
+from confignet_tpu_torch.ops import conv_double_backward
+from confignet_tpu_torch.ops.conv3d import Conv3d, channels_first_padded, conv_channels_last, promote
 from confignet_tpu_torch.ops.norms import adain_modulate, layer_style, std_instance_norm
 from confignet_tpu_torch.ops.upconv import UpConv
 
@@ -102,6 +103,20 @@ class Conv2d(nn.Module):
         x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
         return conv_channels_last(x, weight, bias, stride=self.stride, padding=self.padding,
                                   groups=self.groups)
+
+
+class DiscrConv2d(Conv2d):
+    """:class:`Conv2d` whose backward is differentiable through cuDNN's own
+    gradient kernels (ops/conv_double_backward.py): the discriminator
+    trunks' convolutions, which the R1 penalty differentiates twice.  The
+    same parameters; an asymmetric SAME padding stays an ``F.pad`` before
+    the convolution."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
+        xc, conv_pad = channels_first_padded(x, weight, self.stride, self.padding)
+        out = conv_double_backward.conv2d(xc, weight, bias, self.stride, conv_pad, self.groups)
+        return out.movedim(1, -1).contiguous()
 
 
 class MLP(nn.Module):
@@ -187,7 +202,8 @@ class ConvAdaIN(nn.Module):
 class DiscrBlock(nn.Module):
     """Stride-2 SAME conv block (TF padding: 0 before, 1 after for an even
     size and a 3x3 kernel), optionally returning style statistics
-    (reference: building_blocks.py:83-111).  The styles are taken from the
+    (reference: building_blocks.py:83-111); the conv is a
+    :class:`DiscrConv2d`.  The styles are taken from the
     conv output BEFORE the LeakyReLU; the block output goes through
     LeakyReLU(0.3) and then ``std_instance_norm`` with the per-channel
     ``in_gamma`` (ones) and ``in_beta`` (zeros)."""
@@ -198,8 +214,8 @@ class DiscrBlock(nn.Module):
         super().__init__()
         self.return_styles = return_styles
         self.conv_negative_slope = conv_negative_slope
-        self.conv = Conv2d(in_features, num_feature_maps, (kernel_size, kernel_size), stride=2,
-                           dtype=dtype)
+        self.conv = DiscrConv2d(in_features, num_feature_maps, (kernel_size, kernel_size),
+                                stride=2, dtype=dtype)
         self.in_gamma = nn.Parameter(torch.ones(num_feature_maps))
         self.in_beta = nn.Parameter(torch.zeros(num_feature_maps))
 

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from confignet_tpu_torch.models.blocks import Conv2d, Dense, DiscrBlock
+from confignet_tpu_torch.models.blocks import Dense, DiscrBlock, DiscrConv2d
 
 
 def _block_features(i: int, expansion: int, max_features: int) -> int:
@@ -31,7 +31,9 @@ def _block_features(i: int, expansion: int, max_features: int) -> int:
 
 class _Trunk(nn.Module):
     """The optional 1x1 ``from_rgb`` conv and the DiscrBlocks, shared by both
-    modules; ``final_features`` is the flattened trunk output size."""
+    modules; ``final_features`` is the flattened trunk output size.  Every
+    convolution of the trunk is a ``DiscrConv2d``, whose double backward
+    (the R1 penalty's) runs on cuDNN's gradient kernels."""
 
     def __init__(self, img_shape: Sequence[int], num_resample: int, disc_kernel_size: int,
                  disc_expansion_factor: int, disc_max_feature_maps: int,
@@ -39,8 +41,8 @@ class _Trunk(nn.Module):
                  return_styles: bool):
         super().__init__()
         self.num_resample = num_resample
-        self.from_rgb = (Conv2d(3, 3, (1, 1), dtype=dtype) if initial_from_rgb_layer_in_discr
-                         else None)
+        self.from_rgb = (DiscrConv2d(3, 3, (1, 1), dtype=dtype)
+                         if initial_from_rgb_layer_in_discr else None)
         features, height, width = 3, int(img_shape[0]), int(img_shape[1])
         self.block_features = []
         for i in range(num_resample):

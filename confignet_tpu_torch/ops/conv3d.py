@@ -44,6 +44,17 @@ def conv_channels_last(x: torch.Tensor, weight: torch.Tensor, bias: Optional[tor
     """x (B, *spatial, Ci) with a torch-layout kernel (Co, Ci / groups, *taps)
     -> contiguous (B, *spatial', Co).  ``padding``: "SAME" (TF rule), "VALID"
     or an int applied on both sides of every spatial axis."""
+    xc, conv_pad = channels_first_padded(x, weight, stride, padding)
+    conv = F.conv2d if x.ndim == 4 else F.conv3d
+    out = conv(xc, weight, bias, stride=stride, padding=conv_pad, groups=groups)
+    return out.movedim(1, -1).contiguous()
+
+
+def channels_first_padded(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                          padding: Union[str, int]):
+    """(the channels-first view of ``x``, padded with ``F.pad`` where SAME
+    is asymmetric; the padding left to the convolution) for
+    :func:`conv_channels_last`'s arguments."""
     rank = x.ndim - 2
     xc = x.movedim(-1, 1)
     conv_pad: Union[int, Sequence[int]] = 0
@@ -57,9 +68,7 @@ def conv_channels_last(x: torch.Tensor, weight: torch.Tensor, bias: Optional[tor
         conv_pad = padding
     elif padding != "VALID":
         raise ValueError(f"unknown padding {padding!r}")
-    conv = F.conv2d if rank == 2 else F.conv3d
-    out = conv(xc, weight, bias, stride=stride, padding=conv_pad, groups=groups)
-    return out.movedim(1, -1).contiguous()
+    return xc, conv_pad
 
 
 class Conv3d(nn.Module):
