@@ -30,7 +30,8 @@ builds, cuDNN plans and constants come into being there, and its outputs are
 the call's); then it is captured into the cache's memory pool with
 ``capture_error_mode="thread_local"``, so the data prefetch thread and the
 checkpoint worker cannot break a capture.  Later calls copy their inputs into
-those buffers and replay.  A stateful step (:meth:`GraphCache.run_step`, a
+those buffers (queued, where they come from pinned memory the caller keeps)
+and replay.  A stateful step (:meth:`GraphCache.run_step`, a
 train step) is captured one call later: its first call of a key runs
 eagerly and may build state on the way (Adam's moments at a player's first
 update), so the key is taken again after it, and the second call captures
@@ -39,9 +40,11 @@ and replays.  A function that draws random numbers names its
 capture, so every replay draws the numbers the eager call would have drawn
 next, and advances the generator as far.  A replay's outputs stay in the
 graph's buffers until the next replay of any graph of the cache, so callers
-copy them out at once (:func:`copy_out`).  The kernel wrappers' launch
-counters (``ops/launches.py``) count each replay as the launches made into
-the capture.
+copy them out at once (:func:`copy_out`), or queue their copy before the next
+replay on the same stream (``core/chunks.py``, whose pinned staging buffers
+and their events the cache keeps: :meth:`GraphCache.pinned`).  The kernel
+wrappers' launch counters (``ops/launches.py``) count each replay as the
+launches made into the capture.
 
 CUDA refuses to destroy a graph while a stream captures, and a capture runs
 Python that may collect garbage: a dead owner's cache, or a dead module's
@@ -167,6 +170,21 @@ def copy_out(tree):
     return tree.clone()
 
 
+def host_dtype(tensor: torch.Tensor) -> torch.dtype:
+    """The dtype of a tensor's copy on the host: floats as float32."""
+    return torch.float32 if tensor.is_floating_point() else tensor.dtype
+
+
+def _tensors(tree) -> Iterable[torch.Tensor]:
+    """The tensors of a graph's inputs or outputs (a tensor, or tuples,
+    lists and dicts of them)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list, dict)):
+        for value in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _tensors(value)
+
+
 def settings_key() -> tuple:
     """The global settings a capture bakes in: which convolution and
     reduction kernels run, and whether float32 products use TF32."""
@@ -211,6 +229,10 @@ class GraphCache:
         self._watched = set()
         self._pool = None
         self._stream = None
+        # the chunk runner's pinned host buffers, by (place, shape, dtype),
+        # and each slot's event, recorded behind the last chunk staged in it
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        self._slot_events: List["torch.cuda.Event"] = []
         self.captures = 0  # graphs captured over the cache's life
         self.capture_seconds = 0.0  # host time spent capturing them
         # a cache that dies mid-capture (a collection of its owner) keeps
@@ -248,17 +270,20 @@ class GraphCache:
         self._drop(lambda key: True)
 
     def run(self, name: Hashable, fn: Callable, tensors: Sequence[torch.Tensor],
-            modules: Sequence[torch.nn.Module] = ()):
+            modules: Sequence[torch.nn.Module] = (), non_blocking: bool = False):
         """``fn(*tensors)`` on the cache's device, through the graph of
         (``name``, the modules' parameters, the tensors' shapes and dtypes).
         ``tensors`` may lie on the host; ``modules`` are every module ``fn``
-        reads.  A replay returns the graph's own output buffers."""
+        reads.  A replay returns the graph's own output buffers.
+        ``non_blocking``: a replay's input copies are queued on the stream,
+        not waited for (``tensors`` in pinned memory, left unchanged until
+        the stream has passed them)."""
         if not self.active:
             return fn(*(t.to(self.device) for t in tensors))
         with span("confignet.graph.key"):
             key = self.key(name, modules, tensors)
         if key in self._entries:
-            return self.replay(key, tensors)
+            return self.replay(key, tensors, non_blocking)
         with _first_call():
             inputs = tuple(t.to(self.device, copy=True) for t in tensors)
             outputs = self.run_on_capture_stream(fn, *inputs)
@@ -342,13 +367,14 @@ class GraphCache:
                     self._watched.add(id(module))
                     weakref.finalize(module, _forget_module, weakref.ref(self), id(module))
 
-    def replay(self, key: tuple, tensors: Sequence[torch.Tensor] = ()):
+    def replay(self, key: tuple, tensors: Sequence[torch.Tensor] = (),
+               non_blocking: bool = False):
         """Copy ``tensors`` into the graph's inputs, replay it on the current
         stream and return its outputs."""
         entry = self._entries[key]
         with span("confignet.io.h2d"):
             for static, tensor in zip(entry.inputs, tensors):
-                static.copy_(tensor)
+                static.copy_(tensor, non_blocking=non_blocking)
         with span("confignet.graph.launch"):
             entry.graph.replay()
             add_launches(entry.launches)
@@ -362,10 +388,38 @@ class GraphCache:
         """Each captured function's launches a replay, by its name."""
         return {key[0]: entry.launches for key, entry in list(self._entries.items())}
 
+    def pinned(self, place: Hashable, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """The pinned host buffer of ``shape`` and ``dtype`` at ``place`` (a
+        staging slot and an input's or output's position): made at its first
+        use, shared by every graph whose tensor at that place has that shape,
+        and dropped with the last graph whose inputs or outputs (floats as
+        float32) have it."""
+        buffer = self._pinned.get((place, shape, dtype))
+        if buffer is None:
+            # a plain tensor, written in place by calls in and out of
+            # inference mode
+            with torch.inference_mode(False):
+                buffer = torch.empty(shape, dtype=dtype, pin_memory=True)
+            self._pinned[(place, shape, dtype)] = buffer
+        return buffer
+
+    def slot_event(self, slot: int) -> "torch.cuda.Event":
+        """The event behind the last chunk staged in ``slot`` (made unrecorded)."""
+        while len(self._slot_events) <= slot:
+            self._slot_events.append(torch.cuda.Event())
+        return self._slot_events[slot]
+
     def _drop(self, which: Callable[[tuple], bool]) -> None:
         with self._lock:
             self._warm = {k for k in self._warm if not which(k)}
             _bury([self._entries.pop(key) for key in [k for k in self._entries if which(k)]])
+            # a dropped buffer still in a queued copy is kept by the host
+            # allocator until the copy is done
+            used = {(tuple(t.shape), t.dtype) for entry in self._entries.values()
+                    for t in _tensors(entry.inputs)}
+            used |= {(tuple(t.shape), host_dtype(t)) for entry in self._entries.values()
+                     for t in _tensors(entry.outputs)}
+            self._pinned = {k: v for k, v in self._pinned.items() if k[1:] in used}
 
     def _capture_stream(self) -> "torch.cuda.Stream":
         if self._stream is None:

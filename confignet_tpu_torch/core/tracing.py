@@ -16,12 +16,12 @@ that a CUDA graph captures (it would record once, at capture, and never at a
 replay) and never in the kernels' wrappers.  Names begin ``confignet.``:
 
 - ``confignet.splice``: the demo's attribute splice into latents on the host;
-- ``confignet.io.inputs``: a chunk's inputs prepared on the host (slices,
-  padding, contiguous copies, uint8 to float32);
-- ``confignet.io.h2d``: the inputs copied into a graph's buffers;
-- ``confignet.io.d2h``: a chunk's outputs to the host, with the wait for the
-  replay;
-- ``confignet.io.join``: padding stripped and the chunks concatenated;
+- ``confignet.io.inputs``: a chunk's inputs prepared on the host (its rows
+  and padding copied into a staging buffer, uint8 to float32);
+- ``confignet.io.h2d``: the inputs copied into a graph's buffers (queued, on
+  the card's chunk runner);
+- ``confignet.io.d2h``: a chunk's outputs to the host: the copy-out queued,
+  the wait for the chunk, its rows copied into the call's result;
 - ``confignet.graph.key``: a graph cache's key of a call;
 - ``confignet.graph.launch``: a graph's replay;
 - ``confignet.graph.first_call``: a key's first calls (the eager run, the

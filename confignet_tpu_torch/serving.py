@@ -6,9 +6,10 @@ device between the encoder and the generator, and the uint8 conversion of
 the renders is done on the device too, so only 1 byte per pixel crosses back
 to the host.  On the card each chunk runs as one captured CUDA graph per
 call shape (``core/graphs.py``), as each chunk of the JAX server runs as one
-jitted program.  Over a data-parallel mesh (``parallel/mesh.py``) each rank
-renders its rows of every chunk through its graph and the chunk is gathered
-back on every rank; the scatter and the gather stay outside the graph.
+jitted program, and a call's chunks are pipelined (``core/chunks.py``).
+Over a data-parallel mesh (``parallel/mesh.py``) each rank renders its rows
+of every chunk through its graph and the chunk is gathered back on every
+rank; the scatter and the gather stay outside the graph.
 """
 from __future__ import annotations
 
@@ -18,10 +19,10 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from confignet_tpu_torch.core.chunks import run_chunked
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache
-from confignet_tpu_torch.core.tracing import count, span
-from confignet_tpu_torch.parallel.mesh import all_gather_rows, replicate, shard_batch
+from confignet_tpu_torch.parallel.mesh import replicate
 
 
 class ConfigNetServer:
@@ -97,39 +98,16 @@ class ConfigNetServer:
 
     # -- public API ------------------------------------------------------
 
-    @torch.inference_mode()
     def _chunked(self, key, fn: Callable, arrays: Sequence[np.ndarray], extra=(),
                  modules: Sequence[torch.nn.Module] = ()):
-        """Pad the leading axis to ``chunk``, run ``fn`` per chunk on the
-        device, strip the padding.  ``extra`` tensors pass through whole.
-        Each chunk is a replay of the graph of ``key`` (the pipeline's name
-        and every Python value ``fn`` closes over, as the JAX server's jit
-        cache is keyed) over ``modules``, the modules ``fn`` reads; its
-        outputs go to the host before the next replay.  Over a mesh, ``fn``
-        (the graph) runs on this rank's rows of each chunk, and its outputs
-        are gathered from every rank outside it."""
-        n = arrays[0].shape[0]
-        count("rows.requested", n)
-        count("rows.run", -(-n // self.chunk) * self.chunk)
-        outs = []
-        for start in range(0, n, self.chunk):
-            with span("confignet.io.inputs"):
-                pieces = []
-                for arr in arrays:
-                    piece = arr[start:start + self.chunk]
-                    pad = self.chunk - piece.shape[0]
-                    if pad:
-                        piece = np.concatenate([piece, np.repeat(piece[-1:], pad, axis=0)])
-                    piece = np.ascontiguousarray(piece)
-                    pieces.append(torch.from_numpy(piece) if self.mesh is None
-                                  else shard_batch(self.mesh, piece))
-            out = self._graphs.run(key, fn, pieces + list(extra), modules)
-            with span("confignet.io.d2h"):
-                outs.append(tuple(_host(all_gather_rows(self.mesh, o))
-                                  for o in (out if isinstance(out, tuple) else (out,))))
-        with span("confignet.io.join"):
-            result = tuple(np.concatenate([o[i] for o in outs])[:n] for i in range(len(outs[0])))
-        return result if len(result) > 1 else result[0]
+        """``fn`` over the rows of ``arrays``, ``chunk`` at a time
+        (``core/chunks.py``): each chunk a replay of the graph of ``key``
+        (the pipeline's name and every Python value ``fn`` closes over, as
+        the JAX server's jit cache is keyed) over ``modules``, the modules
+        ``fn`` reads; ``extra`` tensors pass through whole.  Over a mesh,
+        ``fn`` (the graph) runs on this rank's rows of each chunk, and its
+        outputs are gathered from every rank outside it."""
+        return run_chunked(self._graphs, key, fn, arrays, extra, modules, self.chunk, self.mesh)
 
     def encode(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """uint8 (or [-1, 1] float) photos -> float32 (latents, rotations)."""
@@ -195,7 +173,3 @@ class ConfigNetServer:
             rotations = np.zeros((n, 3), np.float32)
         return self.generate(latents, rotations)
 
-
-def _host(tensor: torch.Tensor) -> np.ndarray:
-    """A chunk's output on the host, floats as float32."""
-    return (tensor.float() if tensor.is_floating_point() else tensor).cpu().numpy()

@@ -48,11 +48,12 @@ import torch
 
 from confignet_tpu_torch.core import initializers
 from confignet_tpu_torch.core.async_checkpoint import CheckpointWorker
+from confignet_tpu_torch.core.chunks import run_chunked
 from confignet_tpu_torch.core.config import merge_configs
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache, copy_out, flatten, unflatten
-from confignet_tpu_torch.core.tracing import count, span
+from confignet_tpu_torch.core.tracing import span
 from confignet_tpu_torch.core.images import batched_hflip, build_image_matrix, write_jpeg, write_png
 from confignet_tpu_torch.core.logging_utils import (
     LossFlusher, TensorBoardWriter, log_loss_vals, update_loss_dict)
@@ -1215,7 +1216,6 @@ class ConfigNetFirstStage:
             return self._inference_params_override["synthetic_encoder"]
         return self.synthetic_encoder
 
-    @torch.inference_mode()
     def generate_images(self, latent_vectors, rotations,
                         batch_chunk: int = RENDER_CHUNK) -> np.ndarray:
         """Inference-generator forward -> uint8 images, chunked at a fixed
@@ -1224,76 +1224,40 @@ class ConfigNetFirstStage:
         latent_vectors = np.asarray(latent_vectors, np.float32)
         rotations = np.asarray(rotations, np.float32)
         n = latent_vectors.shape[0]
-        chunk = min(batch_chunk, max(n, 1))
+        if n == 0:
+            return np.zeros((0,), np.uint8)
         gen = self._inference_generator()
-        graphs = self._inference_graphs()
 
         def render(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
             return uint8_from_unit_range(gen(latents, rotations))
 
-        count("rows.requested", n)
-        count("rows.run", -(-n // chunk) * chunk)
-        outputs: List[np.ndarray] = []
-        for start in range(0, n, chunk):
-            with span("confignet.io.inputs"):
-                lat = latent_vectors[start:start + chunk]
-                rot = rotations[start:start + chunk]
-                pad = chunk - lat.shape[0]
-                if pad:
-                    lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
-                    rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
-            imgs = graphs.run("generate_images", render, (torch.from_numpy(lat), torch.from_numpy(rot)),
-                              (gen,))
-            with span("confignet.io.d2h"):
-                outputs.append(imgs.cpu().numpy()[:chunk - pad])
-        if not outputs:
-            return np.zeros((0,), np.uint8)
-        with span("confignet.io.join"):
-            return np.concatenate(outputs, axis=0)
+        return run_chunked(self._inference_graphs(), "generate_images", render,
+                           (latent_vectors, rotations), modules=(gen,), chunk=min(batch_chunk, n))
 
-    def _get_metric_features_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    def _metric_features_for_latents(self, latent_vectors, rotations,
+                                     batch_chunk: int = METRIC_CHUNK) -> np.ndarray:
         """The fused generator -> InceptionV3 path of FID/KID
-        (first_stage.py:1147-1167): ``fn(latents, rotations)`` -> float32
-        (B, 2048) on the device, one replay of the chunk's graph on the card
-        (its output buffer).  The images are quantised on the device as
-        ``generate_images`` quantises them (clip, truncate to uint8, back to
-        float), so the features are those of the saved uint8 images, and the
-        images never cross to the host."""
-        generator = self._inference_generator()
+        (first_stage.py:1147-1167) over the metric latents -> float32
+        (n, 2048), chunked at a fixed batch size (the tail padded by
+        repeating its last row), each chunk one replay of its graph on the
+        card.  The images are quantised on the device as ``generate_images``
+        quantises them (clip, truncate to uint8, back to float), so the
+        features are those of the saved uint8 images, and the images never
+        cross to the host."""
+        latent_vectors = np.asarray(latent_vectors, np.float32)
+        rotations = np.asarray(rotations, np.float32)
+        n = latent_vectors.shape[0]
         extractor = self._inception_metric_object.inception_feature_extractor
-        graphs = self._inference_graphs()
+        if n == 0:
+            return np.zeros((0, extractor.feature_dim), np.float32)
+        generator = self._inference_generator()
 
         def fused(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
             return extractor.features(uint8_from_unit_range(generator(latents, rotations)).float())
 
-        def run(latents: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
-            return graphs.run("metric_features", fused, (latents, rotations),
-                              (generator, extractor.module))
-
-        return run
-
-    @torch.inference_mode()
-    def _metric_features_for_latents(self, latent_vectors, rotations,
-                                     batch_chunk: int = METRIC_CHUNK) -> np.ndarray:
-        """The fused path's features of the metric latents, chunked at a fixed
-        batch size (the tail padded by repeating its last row)."""
-        latent_vectors = np.asarray(latent_vectors, np.float32)
-        rotations = np.asarray(rotations, np.float32)
-        n = latent_vectors.shape[0]
-        chunk = min(batch_chunk, max(n, 1))
-        fn = self._get_metric_features_fn()
-        out = np.zeros((n, self._inception_metric_object.inception_feature_extractor.feature_dim),
-                       np.float32)
-        for start in range(0, n, chunk):
-            lat = latent_vectors[start:start + chunk]
-            rot = rotations[start:start + chunk]
-            pad = chunk - lat.shape[0]
-            if pad:
-                lat = np.concatenate([lat, np.repeat(lat[-1:], pad, axis=0)])
-                rot = np.concatenate([rot, np.repeat(rot[-1:], pad, axis=0)])
-            feats = fn(torch.from_numpy(lat), torch.from_numpy(rot))
-            out[start:start + chunk] = feats.cpu().numpy()[:chunk - pad]
-        return out
+        return run_chunked(self._inference_graphs(), "metric_features", fused,
+                           (latent_vectors, rotations), modules=(generator, extractor.module),
+                           chunk=min(batch_chunk, n))
 
     def generate_images_from_facemodel(self, facemodel_params, rotations) -> np.ndarray:
         """Face-model parameters (one array per input, in config order) ->

@@ -97,7 +97,7 @@ def _prefetch(model):
     return call
 
 
-IO = ("confignet.io.inputs", "confignet.io.d2h", "confignet.io.join")
+IO = ("confignet.io.inputs", "confignet.io.d2h")
 
 
 @pytest.mark.parametrize("make, spans, rows", [
