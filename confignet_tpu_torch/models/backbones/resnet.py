@@ -13,7 +13,7 @@ confignet/dnn_models/real_encoder.py:13).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +44,15 @@ class FrozenBatchNorm(nn.Module):
                          (self.moving_mean, 0.0), (self.moving_variance, 1.0)):
             nn.init.constant_(p, value)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) of ``y = x * scale + shift``: the forward's and the
+        fold's (:func:`fold_frozen_norms`) one formula."""
         inv = torch.rsqrt(self.moving_variance + self.eps) * self.gamma
-        return x * inv + (self.beta - self.moving_mean * inv)
+        return inv, self.beta - self.moving_mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.scale_shift()
+        return x * scale + shift
 
 
 class GroupNorm(nn.Module):
@@ -77,6 +83,13 @@ def _resnet_norm(norm: str, features: int) -> nn.Module:
     if norm != "frozen":
         raise ValueError(f"unknown resnet norm {norm!r} (frozen|group)")
     return FrozenBatchNorm(features)
+
+
+# (convolution, the norm after it) of the stem and of a bottleneck block, in
+# the order they run: the Keras name map and the fold read them
+STEM_CONV_NORM = ("stem_conv", "stem_bn")
+BLOCK_CONV_NORMS = (("shortcut_conv", "shortcut_bn"), ("conv1", "bn1"), ("conv2", "bn2"),
+                    ("conv3", "bn3"))
 
 
 class BottleneckBlock(nn.Module):
@@ -140,6 +153,35 @@ class ResNet50(nn.Module):
         return x.mean(dim=(1, 2))
 
 
+@torch.no_grad()
+def fold_frozen_norms(resnet: ResNet50) -> int:
+    """Fold, in place, each :class:`FrozenBatchNorm` of ``resnet`` into the
+    convolution before it: ``W * scale`` per output channel and
+    ``b * scale + shift``, in the parameters' dtype; the norm becomes
+    ``nn.Identity``.  Only a convolution that computes in float32 takes its
+    norm: after a lower-precision one the norm's float32 multiply is what
+    lifts the stream back to float32, so that norm stays.  Group norms stay.
+    The norms' statistics leave the tree, so this is for an inference copy
+    (the server's snapshot).  Returns the number of norms folded."""
+    owners = [(resnet, (STEM_CONV_NORM,))]
+    owners += [(getattr(resnet, name), BLOCK_CONV_NORMS) for name in resnet.block_names]
+    folded = 0
+    for owner, pairs in owners:
+        for conv_name, norm_name in pairs:
+            norm = getattr(owner, norm_name, None)
+            if not isinstance(norm, FrozenBatchNorm):
+                continue
+            conv = getattr(owner, conv_name)
+            if conv.dtype not in (None, torch.float32):
+                continue
+            scale, shift = norm.scale_shift()
+            conv.weight.mul_(scale.view(-1, *(1,) * (conv.weight.ndim - 1)))
+            conv.bias.mul_(scale).add_(shift)
+            setattr(owner, norm_name, nn.Identity())
+            folded += 1
+    return folded
+
+
 def resnet50_preprocess(images_unit_range: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> Keras ResNet50 'caffe' preprocessing: scale to [0, 255],
     reverse the channels, subtract the BGR ImageNet means."""
@@ -154,27 +196,26 @@ def resnet50_keras_name_map(legacy: bool = False):
     Keras ResNet50 naming describe the same graph: ``conv2_block1_1_conv``
     (keras.applications.resnet, 2.2.4+) and, with ``legacy``,
     ``res2a_branch2a`` / ``bn2a_branch2a``."""
+    stem_conv, stem_bn = STEM_CONV_NORM
     if legacy:
-        mapping = {"conv1": ("stem_conv", "conv"), "bn_conv1": ("stem_bn", "bn")}
+        mapping = {"conv1": (stem_conv, "conv"), "bn_conv1": (stem_bn, "bn")}
     else:
-        mapping = {"conv1_conv": ("stem_conv", "conv"), "conv1_bn": ("stem_bn", "bn")}
-    # (index in the current naming, branch in the legacy one, our sub-module suffix)
-    parts = ((0, "branch1", "shortcut"), (1, "branch2a", "1"), (2, "branch2b", "2"),
-             (3, "branch2c", "3"))
+        mapping = {"conv1_conv": (stem_conv, "conv"), "conv1_bn": (stem_bn, "bn")}
+    # (index in the current naming, branch in the legacy one) of BLOCK_CONV_NORMS
+    parts = tuple(zip((0, 1, 2, 3), ("branch1", "branch2a", "branch2b", "branch2c"),
+                      BLOCK_CONV_NORMS))
     for stage, n_blocks in enumerate((3, 4, 6, 3)):
         for block in range(1, n_blocks + 1):
             ours = f"stage{stage + 1}_block{block}"
-            for idx, branch, which in parts:
-                if which == "shortcut" and block != 1:
+            for idx, branch, (conv, bn) in parts:
+                if idx == 0 and block != 1:  # the projection shortcut
                     continue
-                conv_path = f"{ours}/shortcut_conv" if which == "shortcut" else f"{ours}/conv{which}"
-                bn_path = f"{ours}/shortcut_bn" if which == "shortcut" else f"{ours}/bn{which}"
                 if legacy:
                     base = f"{stage + 2}{chr(ord('a') + block - 1)}"
                     conv_name, bn_name = f"res{base}_{branch}", f"bn{base}_{branch}"
                 else:
                     base = f"conv{stage + 2}_block{block}"
                     conv_name, bn_name = f"{base}_{idx}_conv", f"{base}_{idx}_bn"
-                mapping[conv_name] = (conv_path, "conv")
-                mapping[bn_name] = (bn_path, "bn")
+                mapping[conv_name] = (f"{ours}/{conv}", "conv")
+                mapping[bn_name] = (f"{ours}/{bn}", "bn")
     return mapping

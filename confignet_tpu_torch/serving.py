@@ -22,6 +22,7 @@ import torch
 from confignet_tpu_torch.core.chunks import run_chunked
 from confignet_tpu_torch.core.device import resolve_device
 from confignet_tpu_torch.core.graphs import GraphCache
+from confignet_tpu_torch.models.backbones.resnet import fold_frozen_norms
 from confignet_tpu_torch.parallel.mesh import replicate
 
 
@@ -35,7 +36,11 @@ class ConfigNetServer:
 
     **Snapshot semantics**: the weights are deep-copied at construction, so
     training or fine-tuning the wrapped model afterwards does not change
-    what the server renders.  :meth:`refresh` takes a new snapshot.
+    what the server renders.  :meth:`refresh` takes a new snapshot.  A
+    snapshot serves only, so each frozen batch norm of its encoder's
+    ResNet50 is folded into the float32 convolution before it
+    (``fold_frozen_norms``): two elementwise passes fewer a convolution;
+    the wrapped model keeps its norms.
 
     ``mesh``: a data-parallel mesh (one process per card, each building the
     server alike and making the same calls); the snapshot takes rank 0's
@@ -68,11 +73,13 @@ class ConfigNetServer:
         model = self.confignet
         self._graphs.clear()
 
-        def snap(module):
+        def snap(module, fold_norms=False):
             module = copy.deepcopy(module).to(self.device).eval()
+            if fold_norms:
+                fold_frozen_norms(module.resnet)
             return module if self.mesh is None else replicate(self.mesh, module)
 
-        self._encoder = snap(model.real_encoder)
+        self._encoder = snap(model.real_encoder, fold_norms=True)
         self._generator = snap(model._inference_generator())
         self._synthetic_encoder = snap(model.synthetic_encoder)
 
