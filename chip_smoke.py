@@ -14,15 +14,15 @@
 3. Holds each kernel against its plain PyTorch version at the serving
    path's shapes, in float32 and bfloat16, and times the kernel, the plain
    version and one PyTorch library call that computes the same function,
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, whichever is larger).  Each time is
+   beside the least time the card could take (benchmark/counts/kernels.py's
+   bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+   whichever is larger).  Each time is
    taken twice: ``ms`` over back-to-back launches (which the host may pace)
    and ``device_ms`` by replaying a CUDA graph of 10 launches (the library
    call too, as ``library_device_ms``).  AdaIN runs on the route
    adain_route picks (printed per site; two launches must agree bit for
-   bit) and, for comparison, on the two-pass route; the rotation on the slab route rotate_plan picks
-   (printed with its plan) and on route v1, the first kernel; each pair
-   timed in turns.  Batches 32 (a serving chunk), 64 (a fused FID chunk)
+   bit), the rotation on the slab tiles rotate_plan picks (printed with
+   its plan).  Batches 32 (a serving chunk), 64 (a fused FID chunk)
    and 256, both dtypes; the float32 train step's 12 and 24; and B=1, the
    fine-tune's batch (AdaIN, both dtypes) and the tuned controllability
    metric's renders (the rotation, float32).
@@ -37,12 +37,12 @@
 6. Holds the rotation's transpose kernel (the backward of the resample) against
    its plain version at B=12, 24 (the train step's), 32 and 256 (float32
    atol 2e-4, bf16 3e-2 relative) on the owner-computes route, whose two
-   launches must agree bit for bit, and on route v1, timed in turns beside
-   the input gradient of F.grid_sample.  Holds the AdaIN backward kernel
-   against its plain version (torch ops) at the six 256px sites, B=12, 24
-   and 1 (the fine-tune's), float32 and bf16, on its own route and the
-   two-pass route; two launches must agree bit for bit; times it beside the
-   autograd backward of F.group_norm + affine.
+   launches must agree bit for bit, timed beside the input gradient of
+   F.grid_sample.  Holds the AdaIN backward kernel against its plain
+   version (torch ops) at the six 256px sites, B=12, 24 and 1 (the
+   fine-tune's), float32 and bf16, on the route adain_route picks; two
+   launches must agree bit for bit; times it beside the autograd backward
+   of F.group_norm + affine.
 7. Trains the stage-1 model at full width (256px, batch 24, 5 discriminator
    layers, VGG19 taps (1, 2, 8, 13), 145-dim latents, weights from seed 0) on a
    fake dataset of 64 images: float32, two warm-up steps (the first eager, the
@@ -190,7 +190,7 @@
    (a) the AdaIN forward at that site at B = 1, 12, 24 and 32 and its
    backward at B = 1 and 12, float32 and bf16, each against its plain
    version with step 3's and step 6's bounds, all on the co-resident route
-   (asserted), timed in turns against the two-pass route;
+   (asserted), each timed;
    (b) ConfigNetServer(chunk=32) over the bf16 serving model: encode and
    render_with_attribute 40 photos, generate 256 latents and sample 256
    through a LatentGAN, each cold and warm with exactly (1, 0, 7, 0)
@@ -292,6 +292,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from benchmark.counts.kernels import (
+    ADAIN_FLOPS_PER_ELEMENT, F32_FLOPS_PER_S, HBM_BYTES_PER_S, ROTATE_FLOPS_PER_ELEMENT,
+    TRANSPOSE_FLOPS_PER_ELEMENT, adain_sites, bound_s)
 from confignet_tpu_torch.apps import bench, bench_train, confignet_demo
 from confignet_tpu_torch.core import graphs, pickles, reference_import
 from confignet_tpu_torch.core.device import card_line
@@ -307,31 +310,27 @@ from confignet_tpu_torch.ops import cuda_build
 from confignet_tpu_torch.ops.launches import (LAUNCH_NAMES, launch_counts, unit_launches,
                                               zero_launch_counts)
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_route, adain_two_pass_plan, device_limits, fused_adain_backward, fused_adain_backward_plain,
-    fused_adain_forward, fused_adain_plain_with_stats, launch_backward, launch_forward)
+    adain_route, device_limits, fused_adain_backward, fused_adain_backward_plain,
+    fused_adain_forward, fused_adain_plain_with_stats)
 from confignet_tpu_torch.ops.warp import affine_warp
 from confignet_tpu_torch.parallel import create_mesh
 from confignet_tpu_torch.runtime import gather_images, native_available
 from confignet_tpu_torch.ops.rotate_cuda import (
     device_limits as rotate_device_limits, forward_shared_bytes, launch_rotate_forward,
     launch_rotate_transpose, rotate_3d_grid_forward, rotate_3d_grid_plain, rotate_3d_grid_transpose,
-    rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan, transpose_shared_bytes)
+    rotate_3d_grid_transpose_plain, rotate_plan, transpose_shared_bytes)
 from confignet_tpu_torch.metrics.celeba_attribute_prediction import CelebaAttributeClassifier
 from confignet_tpu_torch.metrics.controllability import ControllabilityMetrics
 from confignet_tpu_torch.metrics.inception import InceptionFeatureExtractor, InceptionMetrics
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.first_stage import (
-    METRIC_CHUNK, RENDER_CHUNK, ConfigNetFirstStage, checkpoint_chunks)
+    DEFAULT_CONFIG, METRIC_CHUNK, RENDER_CHUNK, ConfigNetFirstStage, checkpoint_chunks)
 from confignet_tpu_torch.training.latent_gan import SAMPLE_CHUNK, LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-ROTATE_FLOPS_PER_ELEMENT = 21  # 7 lerps of 3 operations
-TRANSPOSE_FLOPS_PER_ELEMENT = 25  # 3 (1 - d), 14 weight products, 8 accumulating adds
-ADAIN_FLOPS_PER_ELEMENT = 7  # mean 1, centred variance 3, normalise+modulate 3
-ADAIN_SITES_256 = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
-ADAIN_SITE_512 = (65536, 16)
+# the generator's AdaIN sites, (positions, channels), as the benchmark counts them
+ADAIN_SITES_256 = tuple(adain_sites(dict(DEFAULT_CONFIG, output_shape=(256, 256, 3))))
+ADAIN_SITE_512 = adain_sites(dict(DEFAULT_CONFIG, output_shape=(512, 512, 3)))[-1]
 SERVE_CHUNK = 32
 TRAIN_BATCH = 24  # the D updates' generator batch; the G step renders two halves of 12
 TRAIN_STEPS = 3
@@ -446,16 +445,10 @@ def device_ms(fn, reps: int = 10, replays: int = 5, stream=None) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def in_turns(first, second) -> tuple:
-    """device_ms of two versions of one function measured in turns (first,
-    second, second, first); each the mean of its two readings."""
-    a1, b1, b2, a2 = device_ms(first), device_ms(second), device_ms(second), device_ms(first)
-    return (a1 + a2) / 2, (b1 + b2) / 2
-
-
 def bound(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The benchmark's bound of a launch in ms, and what sets it."""
+    by = "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+    return bound_s(n_bytes, flops) * 1e3, by
 
 
 def poses(batch: int, rng):
@@ -487,26 +480,22 @@ def grid_sample_grid(volume, transform):
     return src.flip(1).transpose(1, 2).reshape(batch, size, size, size, 3).to(volume.dtype)
 
 
-def rotate_plans(volume, transpose: bool = False):
+def picked_rotate_plan(volume, transpose: bool = False):
     batch, size, channels = volume.shape[0], volume.shape[1], volume.shape[4]
-    plan = rotate_plan(batch, size, channels, volume.dtype,
+    return rotate_plan(batch, size, channels, volume.dtype,
                        *rotate_device_limits(volume.device.index), transpose=transpose)
-    return plan, rotate_v1_plan(batch, size, channels)
 
 
 def rotate_phase(batch: int, dtype, records: list):
-    """The forward kernel on the route rotate_plan picks and on route v1,
-    each against the plain version, timed beside the plain version and
-    F.grid_sample: ``ms`` by back-to-back launches, ``device_ms`` by
-    CUDA-graph replay (the two routes in turns)."""
+    """The forward kernel on the slab tiles rotate_plan picks against the
+    plain version, timed beside the plain version and F.grid_sample: ``ms``
+    by back-to-back launches, ``device_ms`` by CUDA-graph replay."""
     grid, transform = rotation_inputs(batch, dtype, batch)
-    plan, v1 = rotate_plans(grid)
+    plan = picked_rotate_plan(grid)
     got = rotate_3d_grid_forward(grid, transform)
-    got_v1 = launch_rotate_forward(grid, transform, v1)
     want = rotate_3d_grid_plain(grid, transform)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
-    _, checked_v1 = compare(got_v1, want)
 
     sample_grid = grid_sample_grid(grid, transform)
     volume = grid.permute(0, 4, 1, 2, 3)
@@ -518,26 +507,20 @@ def rotate_phase(batch: int, dtype, records: list):
     def kernel():
         return rotate_3d_grid_forward(grid, transform)
 
-    def old_route():
-        return launch_rotate_forward(grid, transform, v1)
-
     lib_err = (library().permute(0, 2, 3, 4, 1).float() - want.float()).abs().max().item()
     elem = grid.element_size()
     n_bytes = 2 * grid.numel() * elem + transform.numel() * 4
     bound_ms, bound_by = bound(n_bytes, ROTATE_FLOPS_PER_ELEMENT * grid.numel())
-    kernel_device, v1_device = in_turns(kernel, old_route)
     rec = dict(kernel="rotate_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(grid.shape), route=plan.route, plan=plan._asdict(), max_abs_err=err,
-               checked_err=checked, v1_checked_err=checked_v1, library_max_abs_err=lib_err,
-               ms=time_ms(kernel), device_ms=kernel_device,
-               v1_ms=time_ms(old_route), v1_device_ms=v1_device,
+               shape=list(grid.shape), plan=plan._asdict(), max_abs_err=err,
+               checked_err=checked, library_max_abs_err=lib_err,
+               ms=time_ms(kernel), device_ms=device_ms(kernel),
                plain_ms=time_ms(lambda: rotate_3d_grid_plain(grid, transform)),
                library_ms=time_ms(library), library_device_ms=device_ms(library),
                bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
-    tol = TOL[rec["dtype"]]["rotate"]
-    if not (checked <= tol and checked_v1 <= tol):
+    if not checked <= TOL[rec["dtype"]]["rotate"]:
         raise AssertionError(f"rotate kernel disagrees with its plain version: {rec}")
 
 
@@ -547,27 +530,22 @@ def site(positions: int, channels: int) -> str:
 
 def adain_phase(batch: int, positions: int, channels: int, dtype, records: list):
     """The forward kernel on the route adain_route picks, launched twice
-    (the two must be equal bit for bit: fixed-order merges), and on the
-    two-pass route, each against the plain version, timed beside the plain
-    version and F.group_norm + affine: ``ms`` by back-to-back launches,
-    ``device_ms`` by CUDA-graph replay (kernel and two-pass route in
-    turns)."""
+    (the two must be equal bit for bit: fixed-order merges), against the
+    plain version, timed beside the plain version and F.group_norm +
+    affine: ``ms`` by back-to-back launches, ``device_ms`` by CUDA-graph
+    replay."""
     gen = torch.Generator(device="cuda").manual_seed(positions * channels + batch)
     x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
     scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
     bias = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
-    limits = device_limits(x.device.index)
-    plan = adain_route(batch, positions, channels, dtype, *limits)
-    two_pass = adain_two_pass_plan(batch, positions, channels, dtype, limits[1])
+    plan = adain_route(batch, positions, channels, dtype, *device_limits(x.device.index))
     got, stats = fused_adain_forward(x, scale, bias)
     again, stats_again = fused_adain_forward(x, scale, bias)
-    got_two, stats_two = launch_forward(x, scale, bias, 1e-3, two_pass)
     want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
     torch.cuda.synchronize()
     repeat_equal = torch.equal(got, again) and torch.equal(stats, stats_again)
     err, checked = compare(got, want)
-    _, checked_two = compare(got_two, want)
-    stats_err = max(compare(s, want_stats)[0] for s in (stats, stats_two))
+    stats_err = compare(stats, want_stats)[0]
 
     x_cf = x.transpose(1, 2).contiguous()  # group_norm's channels-first layout
     gain, shift = (scale + 1)[:, :, None], bias[:, :, None]
@@ -578,19 +556,14 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     def kernel():
         return fused_adain_forward(x, scale, bias)
 
-    def old_route():
-        return launch_forward(x, scale, bias, 1e-3, two_pass)
-
     elem = x.element_size()
     n_bytes = 2 * x.numel() * elem + 2 * scale.numel() * elem
     bound_ms, bound_by = bound(n_bytes, ADAIN_FLOPS_PER_ELEMENT * x.numel())
-    kernel_device, two_pass_device = in_turns(kernel, old_route)
     rec = dict(kernel="adain_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
                shape=list(x.shape), site=site(positions, channels), route=plan.route,
                plan=plan._asdict(), max_abs_err=err, checked_err=checked,
-               two_pass_checked_err=checked_two, stats_max_abs_err=stats_err,
-               repeat_equal=repeat_equal, ms=time_ms(kernel), device_ms=kernel_device,
-               two_pass_ms=time_ms(old_route), two_pass_device_ms=two_pass_device,
+               stats_max_abs_err=stats_err, repeat_equal=repeat_equal, ms=time_ms(kernel),
+               device_ms=device_ms(kernel),
                plain_ms=time_ms(lambda: fused_adain_plain_with_stats(x, scale, bias)),
                plain_device_ms=device_ms(lambda: fused_adain_plain_with_stats(x, scale, bias)),
                library_ms=time_ms(library), library_device_ms=device_ms(library),
@@ -598,26 +571,23 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
     tol = TOL[rec["dtype"]]["adain"]
-    if not (repeat_equal and checked <= tol and checked_two <= tol and stats_err <= 1e-4 * max(
+    if not (repeat_equal and checked <= tol and stats_err <= 1e-4 * max(
             1.0, want_stats.abs().max().item())):
         raise AssertionError(f"AdaIN kernel disagrees with its plain version: {rec}")
 
 
 def transpose_phase(batch: int, dtype, records: list):
     """The transpose kernel (gradient of the resample w.r.t. the grid) on the
-    route rotate_plan picks, launched twice (the two must be equal bit for
-    bit: fixed-order sums), and on route v1 (float atomics), each against
-    the plain version; timed beside the plain version and the input gradient
-    of F.grid_sample (the two routes' device times in turns)."""
+    owner-computes tiles rotate_plan picks, launched twice (the two must be
+    equal bit for bit: fixed-order sums), against the plain version; timed
+    beside the plain version and the input gradient of F.grid_sample."""
     ct, transform = rotation_inputs(batch, dtype, 1000 + batch)
-    plan, v1 = rotate_plans(ct, transpose=True)
+    plan = picked_rotate_plan(ct, transpose=True)
     got = rotate_3d_grid_transpose(ct, transform)
     again = rotate_3d_grid_transpose(ct, transform)
-    got_v1 = launch_rotate_transpose(ct, transform, v1)
     want = rotate_3d_grid_transpose_plain(ct, transform)
     torch.cuda.synchronize()
     err, checked = compare(got, want)
-    _, checked_v1 = compare(got_v1, want)
     repeat_equal = torch.equal(got, again)
 
     # library yardstick: the input gradient of the forward phase's 5-D
@@ -640,34 +610,28 @@ def transpose_phase(batch: int, dtype, records: list):
     def kernel():
         return rotate_3d_grid_transpose(ct, transform)
 
-    def old_route():
-        return launch_rotate_transpose(ct, transform, v1)
-
     lib_err = (library().permute(0, 2, 3, 4, 1).float() - want.float()).abs().max().item()
     elem = ct.element_size()
     n_bytes = 2 * ct.numel() * elem + transform.numel() * 4
     bound_ms, bound_by = bound(n_bytes, TRANSPOSE_FLOPS_PER_ELEMENT * ct.numel())
-    kernel_device, v1_device = in_turns(kernel, old_route)
     rec = dict(kernel="rotate_transpose_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
-               shape=list(ct.shape), route=plan.route, plan=plan._asdict(), max_abs_err=err,
-               checked_err=checked, v1_checked_err=checked_v1, repeat_equal=repeat_equal,
-               library_max_abs_err=lib_err, ms=time_ms(kernel), device_ms=kernel_device,
-               v1_ms=time_ms(old_route), v1_device_ms=v1_device,
+               shape=list(ct.shape), plan=plan._asdict(), max_abs_err=err,
+               checked_err=checked, repeat_equal=repeat_equal,
+               library_max_abs_err=lib_err, ms=time_ms(kernel), device_ms=device_ms(kernel),
                plain_ms=time_ms(lambda: rotate_3d_grid_transpose_plain(ct, transform)),
                library_ms=time_ms(library), library_device_ms=device_ms(library, stream=side),
                bound_ms=bound_ms, bound_by=bound_by)
     records.append(rec)
     print("phase " + json.dumps(rec), flush=True)
-    tol = TOL[rec["dtype"]]["transpose"]
-    if not (repeat_equal and checked <= tol and checked_v1 <= tol):
+    if not (repeat_equal and checked <= TOL[rec["dtype"]]["transpose"]):
         raise AssertionError(f"transpose kernel disagrees with its plain version: {rec}")
 
 
 def rotate_sweep(path: str) -> None:
     """Device time of the slab forward and the owner-computes transpose at
-    the main path's shapes for each tile that fits, beside route v1, each
-    checked against the plain version; one JSON line per tile, also written
-    to ``path``.  The tiles rotate_plan prefers come from this sweep."""
+    the main path's shapes for each tile that fits, each checked against the
+    plain version; one JSON line per tile, also written to ``path``.  The
+    tiles rotate_plan prefers come from this sweep."""
     smem, _ = rotate_device_limits(0)
     rows = []
     for transpose, batch, dtype in ((False, 24, torch.float32), (False, 12, torch.float32),
@@ -675,7 +639,7 @@ def rotate_sweep(path: str) -> None:
                                     (True, 12, torch.float32), (True, 24, torch.float32),
                                     (True, 12, torch.bfloat16), (True, 32, torch.bfloat16)):
         volume, transform = rotation_inputs(batch, dtype, 7)
-        plan, v1 = rotate_plans(volume, transpose)
+        plan = picked_rotate_plan(volume, transpose)
         elem = volume.element_size()
         if transpose:
             tiles = [plan._replace(group=g, shared_bytes=transpose_shared_bytes(16, g))
@@ -687,12 +651,12 @@ def rotate_sweep(path: str) -> None:
                      for w in (1, 2, 4, 8) for r in (32, 64, 128)]
             run, plain = launch_rotate_forward, rotate_3d_grid_plain
         want = plain(volume, transform)
-        for tile in [v1] + [t for t in tiles if t.shared_bytes <= smem]:
+        for tile in [t for t in tiles if t.shared_bytes <= smem]:
             got = run(volume, transform, tile)
             checked = compare(got, want)[1]
             ms = device_ms(lambda: run(volume, transform, tile))
             row = dict(transpose=transpose, batch=batch, dtype=str(dtype).replace("torch.", ""),
-                       route=tile.route, window=tile.window, group=tile.group,
+                       window=tile.window, group=tile.group,
                        shared_bytes=tile.shared_bytes, device_ms=ms, checked_err=checked,
                        picked=tile == plan)
             rows.append(row)
@@ -704,29 +668,25 @@ def rotate_sweep(path: str) -> None:
 def adain_backward_phase(batch: int, positions: int, channels: int, dtype, records: list):
     """The backward kernel against its plain version (the torch-op backward)
     on the same saved statistics, launched twice (the two results must be
-    equal bit for bit: fixed-order sums), also on the two-pass route; timed
-    beside the plain version and the autograd backward of F.group_norm +
-    affine (the kernel's route and the two-pass route in turns)."""
+    equal bit for bit: fixed-order sums); timed beside the plain version and
+    the autograd backward of F.group_norm + affine."""
     gen = torch.Generator(device="cuda").manual_seed(positions * channels + batch + 7)
     x = (torch.randn((batch, positions, channels), generator=gen, device="cuda") * 3 + 1).to(dtype)
     g = torch.randn((batch, positions, channels), generator=gen, device="cuda").to(dtype)
     scale = torch.randn((batch, channels), generator=gen, device="cuda").to(dtype)
     bias = torch.zeros((batch, channels), device="cuda", dtype=dtype)
-    limits = device_limits(x.device.index)
-    plan = adain_route(batch, positions, channels, dtype, *limits, backward=True)
-    two_pass = adain_two_pass_plan(batch, positions, channels, dtype, limits[1])
+    plan = adain_route(batch, positions, channels, dtype, *device_limits(x.device.index),
+                       backward=True)
     _, stats = fused_adain_forward(x, scale, bias)
     got = fused_adain_backward(x, g, stats, scale, bias.dtype)
     again = fused_adain_backward(x, g, stats, scale, bias.dtype)
-    got_two = launch_backward(x, g, stats, scale, bias.dtype, two_pass)
     want = fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
     torch.cuda.synchronize()
     repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
     err, checked = compare(got[0], want[0])
-    _, checked_two = compare(got_two[0], want[0])
     sums_err = max((a.float() - b.float()).abs().max().item()
                    / max(1.0, b.float().abs().max().item())
-                   for pair in (got, got_two) for a, b in zip(pair[1:], want[1:]))
+                   for a, b in zip(got[1:], want[1:]))
 
     # the library's forward runs on a side stream: autograd runs the backward
     # on the forward's stream, which the graph capture must then use too
@@ -749,18 +709,13 @@ def adain_backward_phase(batch: int, positions: int, channels: int, dtype, recor
     def plain():
         return fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
 
-    def old_route():
-        return launch_backward(x, g, stats, scale, bias.dtype, two_pass)
-
     elem = x.element_size()
     n_bytes = 3 * x.numel() * elem + 3 * scale.numel() * elem  # x, g read; dx written
-    kernel_device, two_pass_device = in_turns(kernel, old_route)
     rec = dict(kernel="adain_backward_cuda", batch=batch, dtype=str(dtype).replace("torch.", ""),
                shape=list(x.shape), site=site(positions, channels), route=plan.route,
                plan=plan._asdict(), max_abs_err=err, checked_err=checked,
-               two_pass_checked_err=checked_two, sums_err=sums_err, repeat_equal=repeat_equal,
-               ms=time_ms(kernel), device_ms=kernel_device,
-               two_pass_ms=time_ms(old_route), two_pass_device_ms=two_pass_device,
+               sums_err=sums_err, repeat_equal=repeat_equal,
+               ms=time_ms(kernel), device_ms=device_ms(kernel),
                plain_ms=time_ms(plain), plain_device_ms=device_ms(plain),
                library_ms=time_ms(library), library_device_ms=device_ms(library, stream=side),
                bound_ms=bound(n_bytes, 0)[0], bound_by="bytes")
@@ -768,7 +723,7 @@ def adain_backward_phase(batch: int, positions: int, channels: int, dtype, recor
     print("phase " + json.dumps(rec), flush=True)
     tol = TOL[rec["dtype"]]["adain"]
     sums_tol = 1e-4 if dtype == torch.float32 else tol
-    if not (repeat_equal and checked <= tol and checked_two <= tol and sums_err <= sums_tol):
+    if not (repeat_equal and checked <= tol and sums_err <= sums_tol):
         raise AssertionError(f"AdaIN backward kernel disagrees with its plain version: {rec}")
 
 
@@ -4023,9 +3978,8 @@ def main() -> int:
                                            for dtype in ("float32", "bfloat16")}
             item["fine_tune_iteration_512"] = {dtype: times({(kernel, 1): 1}, dtype, sites_512)[0]
                                                for dtype in ("float32", "bfloat16")}
-        else:  # rotation: the kernel route of each batch, and route v1 in turns
-            item["kernel_route"] = {f"B{r['batch']}": r["route"] for r, _ in picked}
-            item["v1_device_ms"] = sum(r["v1_device_ms"] * n for r, n in picked)
+        else:  # rotation: the tiles of each batch
+            item["plans"] = {f"B{r['batch']}": r["plan"] for r, _ in picked}
         return item
 
     half = TRAIN_BATCH // 2

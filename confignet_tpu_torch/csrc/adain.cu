@@ -33,15 +33,7 @@
 // rows once.  That is the bound's traffic: x read once, out written once
 // (forward); x and g read once, dx written once (backward).
 //
-// Route 2, two passes (adain_fwd_partials + adain_fwd_apply,
-// adain_bwd_partials + adain_bwd_apply), for slabs larger than the card's
-// shared memory.  The positions are cut into chunks across ordinary blocks;
-// the first kernel writes per-chunk partials to a float32 scratch, the
-// second merges them in chunk order and writes the chunk.  It reads x (and g) twice: at best two thirds of the bound.
-// The forward's per-thread statistics are sums shifted by the thread's first
-// value (one division per thread, not per element).
-//
-// Route 3, one pass over co-resident blocks (adain_fwd_resident,
+// Route 2, one pass over co-resident blocks (adain_fwd_resident,
 // adain_bwd_resident), for slabs that no cluster holds but the card's SMs
 // do (the 512px site 256^2 x 16: 4 MB a sample in float32, 2 MB in
 // bfloat16).  One sample's (P, group) slab is cut over `parts` ordinary
@@ -59,14 +51,15 @@
 // every block, and every run, gets the same bits, without float atomics,
 // and writes its resident rows once: the bound's traffic again.
 //
-// All routes use the same thread layout: 256 threads, each owning `vec`
+// Both routes use the same thread layout: 256 threads, each owning `vec`
 // neighbouring channels (16 bytes, or 1 channel where C does not allow
 // that) of the group and every lanes-th row; per-channel sums over the rows
 // of a block are a tree over the lanes in shared memory, in a fixed order.
 // Which route and which (group, parts, wave) a shape takes is decided in
 // Python (ops/adain_cuda.py adain_route) from the shape, the dtype, the
-// card's shared memory per block and its SM count;
-// shared_bytes() here repeats its arithmetic for the shared memory size.
+// card's shared memory per block and its SM count; adain_route refuses a
+// slab that neither route holds.  shared_bytes() here repeats its
+// arithmetic for the shared memory size.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -447,252 +440,7 @@ adain_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// Route 2: two passes.  grid (groups, chunks, B); partial (B, chunks, 2, C)
-// float32.  Shared memory: red (lanes * group floats).
-// ---------------------------------------------------------------------------
-
-// Forward partials: per chunk and channel, (sum, M2 about the chunk mean).
-// Each thread sums x - s and (x - s)^2 with s its own first value, then
-// turns them into (sum, M2) once; blocks merge threads as the cluster
-// kernel merges blocks.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-adain_fwd_partials(const T* __restrict__ x, float* __restrict__ partial, int P, int C, int group,
-                   int chunk_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  const Layout t(group, VEC);
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * group + t.col * VEC;
-  const bool live = t.active && c < C;
-  const int row0 = chunk * chunk_rows;
-  const int rows = part_rows(P, chunk_rows, chunk);
-  const T* xb = x + ((size_t)b * P + row0) * C;
-
-  float shift[VEC] = {}, s1[VEC] = {}, s2[VEC] = {};
-  int n = 0;
-  if (live && t.lane < rows) load_f32<T, VEC>(xb + (size_t)t.lane * C + c, shift);
-  if (live) {
-    for (int r = t.lane; r < rows; r += t.lanes) {
-      float v[VEC];
-      load_f32<T, VEC>(xb + (size_t)r * C + c, v);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float d = v[i] - shift[i];
-        s1[i] += d;
-        s2[i] += d * d;
-      }
-      ++n;
-    }
-  }
-  // the thread's (sum, M2): sum = n s + s1, M2 = s2 - s1^2 / n
-  float sum[VEC], m2[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sum[i] = n * shift[i] + s1[i];
-    m2[i] = n > 0 ? s2[i] - s1[i] * s1[i] / n : 0.f;
-  }
-  lane_sum<VEC>(t, group, red, sum);
-  float mean[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) mean[i] = rows > 0 ? red[t.col * VEC + i] / rows : 0.f;
-  float* out = partial + ((size_t)b * chunks + chunk) * 2 * C;
-  if (live && t.lane == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[c + i] = red[t.col * VEC + i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const float d = n > 0 ? sum[i] / n - mean[i] : 0.f;
-    m2[i] += n * d * d;
-  }
-  lane_sum<VEC>(t, group, red, m2);
-  if (live && t.lane == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[C + c + i] = red[t.col * VEC + i];
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-adain_fwd_apply(const T* __restrict__ x, const float* __restrict__ partial,
-                const void* __restrict__ scale, const void* __restrict__ bias,
-                T* __restrict__ out, float* __restrict__ stats, int P, int C, int group,
-                int chunk_rows, long long scale_stride, long long bias_stride, int scale_dtype,
-                int bias_dtype, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  const Layout t(group, VEC);
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * group + t.col * VEC;
-  const bool live = t.active && c < C;
-  const float* pb = partial + (size_t)b * chunks * 2 * C;
-
-  // merge the chunks in a fixed order: lane l takes chunks l, l + lanes, ...
-  float acc[VEC] = {};
-  if (live) {
-    for (int k = t.lane; k < chunks; k += t.lanes) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + c + i];
-    }
-  }
-  lane_sum<VEC>(t, group, red, acc);
-  float mean[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) mean[i] = red[t.col * VEC + i] / P;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-  if (live) {
-    for (int k = t.lane; k < chunks; k += t.lanes) {
-      const int nk = part_rows(P, chunk_rows, k);
-      if (nk == 0) continue;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float d = pb[(size_t)k * 2 * C + c + i] / nk - mean[i];
-        acc[i] += pb[(size_t)k * 2 * C + C + c + i] + nk * d * d;
-      }
-    }
-  }
-  lane_sum<VEC>(t, group, red, acc);
-  if (!live) return;
-  float gain[VEC], shift[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const float rstd = rsqrtf(red[t.col * VEC + i] / P + eps);
-    gain[i] = rstd * (load_param(scale, scale_dtype, b * scale_stride + c + i) + 1.f);
-    shift[i] = load_param(bias, bias_dtype, b * bias_stride + c + i);
-    if (chunk == 0 && t.lane == 0) {
-      stats[(size_t)b * 2 * C + c + i] = mean[i];
-      stats[(size_t)b * 2 * C + C + c + i] = rstd;
-    }
-  }
-  const int rows = part_rows(P, chunk_rows, chunk);
-  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
-  for (int r = t.lane; r < rows; r += t.lanes) {
-    float v[VEC];
-    load_f32<T, VEC>(x + base + (size_t)r * C + c, v);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = (v[i] - mean[i]) * gain[i] + shift[i];
-    store_from_f32<T, VEC>(out + base + (size_t)r * C + c, v);
-  }
-}
-
-// Backward partials: per chunk and channel, (sum g, sum g * xhat).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-adain_bwd_partials(const T* __restrict__ x, const T* __restrict__ g,
-                   const float* __restrict__ stats, float* __restrict__ partial, int P, int C,
-                   int group, int chunk_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  const Layout t(group, VEC);
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * group + t.col * VEC;
-  const bool live = t.active && c < C;
-  const int rows = part_rows(P, chunk_rows, chunk);
-  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
-
-  float sg[VEC] = {}, sgx[VEC] = {};
-  if (live) {
-    float mean[VEC], rstd[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      mean[i] = stats[(size_t)b * 2 * C + c + i];
-      rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
-    }
-    for (int r = t.lane; r < rows; r += t.lanes) {
-      float xv[VEC], gv[VEC];
-      load_f32<T, VEC>(x + base + (size_t)r * C + c, xv);
-      load_f32<T, VEC>(g + base + (size_t)r * C + c, gv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        sg[i] += gv[i];
-        sgx[i] += gv[i] * ((xv[i] - mean[i]) * rstd[i]);
-      }
-    }
-  }
-  float* out = partial + ((size_t)b * chunks + chunk) * 2 * C;
-  lane_sum<VEC>(t, group, red, sg);
-  if (live && t.lane == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[c + i] = red[t.col * VEC + i];
-  }
-  __syncthreads();
-  lane_sum<VEC>(t, group, red, sgx);
-  if (live && t.lane == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[C + c + i] = red[t.col * VEC + i];
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-adain_bwd_apply(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ stats,
-                const float* __restrict__ partial, const void* __restrict__ scale,
-                T* __restrict__ dx, void* __restrict__ dscale, void* __restrict__ dbias, int P,
-                int C, int group, int chunk_rows, long long scale_stride, int scale_dtype,
-                int dscale_dtype, int dbias_dtype) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  const Layout t(group, VEC);
-  const int b = blockIdx.z, chunk = blockIdx.y, chunks = gridDim.y;
-  const int c = blockIdx.x * group + t.col * VEC;
-  const bool live = t.active && c < C;
-  const float* pb = partial + (size_t)b * chunks * 2 * C;
-
-  float acc[VEC] = {};
-  if (live) {
-    for (int k = t.lane; k < chunks; k += t.lanes) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + c + i];
-    }
-  }
-  lane_sum<VEC>(t, group, red, acc);
-  float db[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) db[i] = red[t.col * VEC + i];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-  if (live) {
-    for (int k = t.lane; k < chunks; k += t.lanes) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += pb[(size_t)k * 2 * C + C + c + i];
-    }
-  }
-  lane_sum<VEC>(t, group, red, acc);
-  if (!live) return;
-  float mean[VEC], rstd[VEC], k1[VEC], a[VEC], bcoef[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const float ds = red[t.col * VEC + i];
-    mean[i] = stats[(size_t)b * 2 * C + c + i];
-    rstd[i] = stats[(size_t)b * 2 * C + C + c + i];
-    k1[i] = rstd[i] * (load_param(scale, scale_dtype, b * scale_stride + c + i) + 1.f);
-    a[i] = db[i] / P;
-    bcoef[i] = ds / P;
-    if (chunk == 0 && t.lane == 0) {
-      store_param(dbias, dbias_dtype, (size_t)b * C + c + i, db[i]);
-      store_param(dscale, dscale_dtype, (size_t)b * C + c + i, ds);
-    }
-  }
-  const int rows = part_rows(P, chunk_rows, chunk);
-  const size_t base = ((size_t)b * P + (size_t)chunk * chunk_rows) * C;
-  for (int r = t.lane; r < rows; r += t.lanes) {
-    float xv[VEC], gv[VEC];
-    load_f32<T, VEC>(x + base + (size_t)r * C + c, xv);
-    load_f32<T, VEC>(g + base + (size_t)r * C + c, gv);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      gv[i] = k1[i] * (gv[i] - a[i] - (xv[i] - mean[i]) * rstd[i] * bcoef[i]);
-    store_from_f32<T, VEC>(dx + base + (size_t)r * C + c, gv);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Route 3: one pass over co-resident blocks.  grid (wave * parts), launched
+// Route 2: one pass over co-resident blocks.  grid (wave * parts), launched
 // cooperatively; block -> (slot = blockIdx.x / parts, part k = blockIdx.x %
 // parts), and slot s takes the work items (sample, group) s, s + wave, ...
 // partial (B, parts, 2, C) float32; arrived (B * groups) uint32, zero at
@@ -815,7 +563,7 @@ adain_fwd_resident(const T* __restrict__ x, const void* __restrict__ scale,
         ++n;
       }
     }
-    // the block's (sum, M2), as adain_fwd_partials takes a chunk's
+    // the block's (sum, M2): sum = n s + s1, M2 = s2 - s1^2 / n
     float sum[VEC], m2[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
@@ -1049,12 +797,11 @@ adain_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
 // Host side
 // ---------------------------------------------------------------------------
 
-enum Route : int { kOnePass = 0, kTwoPass = 1, kResident = 2 };
+enum Route : int { kOnePass = 0, kResident = 1 };
 
 // Dynamic shared memory of a launch (ops/adain_cuda.py _shared_bytes repeats it).
 size_t shared_bytes(int route, int tensors, int P, int group, int vec, int parts, int elem) {
   const size_t red = (size_t)lanes_for(group, vec) * group * sizeof(float);
-  if (route == kTwoPass) return red;
   const int per = (P + parts - 1) / parts;
   const size_t tiles = tensors * align16((size_t)per * group * elem) + red;
   if (route == kResident) return tiles + (3 + 2 * (size_t)parts) * group * sizeof(float);
@@ -1127,11 +874,9 @@ struct Shape {
     if (vec != 1 && vec != 16 / elem) return false;
     if (group % vec || C % vec) return false;
     if (route == kOnePass) return parts <= 16;
-    if (route == kResident) return wave >= 1 && (long long)wave * parts <= 65535;
-    return route == kTwoPass && parts <= P && parts <= 65535;
+    return route == kResident && wave >= 1 && (long long)wave * parts <= 65535;
   }
   int groups() const { return (C + group - 1) / group; }
-  int chunk_rows() const { return (P + parts - 1) / parts; }
 };
 
 template <typename T, int VEC>
@@ -1147,18 +892,9 @@ cudaError_t run_forward(const Shape& sh, const void* x, const void* scale, const
         dim3(sh.parts * sh.groups(), sh.B), sh.parts, smem, s, xt, scale, bias, ot, stats, sh.P,
         sh.C, sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
   }
-  if (sh.route == kResident) {
-    return launch_cooperative<adain_fwd_resident<T, VEC>>(
-        sh.wave * sh.parts, smem, s, xt, scale, bias, ot, stats, partial, arrived, sh.B, sh.P,
-        sh.C, sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
-  }
-  const dim3 grid(sh.groups(), sh.parts, sh.B);
-  adain_fwd_partials<T, VEC><<<grid, kThreads, smem, s>>>(xt, partial, sh.P, sh.C, sh.group,
-                                                          sh.chunk_rows());
-  adain_fwd_apply<T, VEC><<<grid, kThreads, smem, s>>>(
-      xt, partial, scale, bias, ot, stats, sh.P, sh.C, sh.group, sh.chunk_rows(), scale_stride,
-      bias_stride, scale_dtype, bias_dtype, eps);
-  return cudaGetLastError();
+  return launch_cooperative<adain_fwd_resident<T, VEC>>(
+      sh.wave * sh.parts, smem, s, xt, scale, bias, ot, stats, partial, arrived, sh.B, sh.P, sh.C,
+      sh.group, sh.parts, scale_stride, bias_stride, scale_dtype, bias_dtype, eps);
 }
 
 template <typename T, int VEC>
@@ -1176,19 +912,9 @@ cudaError_t run_backward(const Shape& sh, const void* x, const void* g, const fl
         dbias, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype,
         dbias_dtype);
   }
-  if (sh.route == kResident) {
-    return launch_cooperative<adain_bwd_resident<T, VEC>>(
-        sh.wave * sh.parts, smem, s, xt, gt, stats, scale, dxt, dscale, dbias, partial, arrived,
-        sh.B, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype,
-        dbias_dtype);
-  }
-  const dim3 grid(sh.groups(), sh.parts, sh.B);
-  adain_bwd_partials<T, VEC><<<grid, kThreads, smem, s>>>(xt, gt, stats, partial, sh.P, sh.C,
-                                                          sh.group, sh.chunk_rows());
-  adain_bwd_apply<T, VEC><<<grid, kThreads, smem, s>>>(
-      xt, gt, stats, partial, scale, dxt, dscale, dbias, sh.P, sh.C, sh.group, sh.chunk_rows(),
-      scale_stride, scale_dtype, dscale_dtype, dbias_dtype);
-  return cudaGetLastError();
+  return launch_cooperative<adain_bwd_resident<T, VEC>>(
+      sh.wave * sh.parts, smem, s, xt, gt, stats, scale, dxt, dscale, dbias, partial, arrived,
+      sh.B, sh.P, sh.C, sh.group, sh.parts, scale_stride, scale_dtype, dscale_dtype, dbias_dtype);
 }
 
 }  // namespace
@@ -1205,11 +931,11 @@ extern "C" int adain_device_limits(int device, int* sms, int* smem_per_block) {
 // bfloat16 (x_dtype code); scale/bias: (B, C) float32 or bfloat16 with unit
 // channel stride and the given row strides; stats: (B, 2, C) float32
 // (mean, rstd), written.  route 0: one pass, `parts` blocks per cluster
-// (<= 16); route 1: two passes over `parts` chunks of positions, partial
-// (B, parts, 2, C) float32 scratch; route 2: one pass over `parts`
+// (<= 16), partial and arrived unused; route 1: one pass over `parts`
 // co-resident blocks per (sample, group), `wave` of them at a time, partial
-// as for route 1 and arrived (B * groups) uint32 counters, zero.  Returns
-// the launch's cudaError_t.
+// (B, parts, 2, C) float32 scratch and arrived (B * groups) uint32
+// counters, zero.  Returns cudaErrorInvalidValue for any other route or
+// arguments out of range, else the launch's cudaError_t.
 extern "C" int adain_forward(const void* x, const void* scale, const void* bias, void* out,
                              float* stats, float* partial, unsigned* arrived, int B, int P, int C,
                              int route, int group, int vec, int parts, int wave,

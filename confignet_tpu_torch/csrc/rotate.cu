@@ -51,19 +51,14 @@
 // for all channels, so one block runs on an SM; each warp's per-point
 // instructions and shared-memory read-modify-writes, not bytes, set its time.
 //
-// Route "v1" (rotate3d_forward_kernel, rotate3d_transpose_kernel) keeps the
-// first kernels: one block per 32 lattice points of a sample, the 8 corners
-// read straight from global memory; the transpose adds with float32 atomics
-// into a zeroed accumulator (a float32 scratch and a cast kernel for bf16),
-// so its last bits vary from run to run.  Only measurements and tests take
-// it, as a second reference; ops/rotate_cuda.rotate_plan picks it only for a
-// shape the slab kernels cannot take (S > 32 forward, S > 16 transpose).
+// The forward takes S <= 32 and the transpose S <= 16 (the generator's volume
+// is S = 16); both refuse other shapes with cudaErrorInvalidValue, and
+// ops/rotate_cuda.rotate_plan refuses them before a launch.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;        // forward and route v1
-constexpr int kPointsPerBlock = 32;  // route v1
+constexpr int kThreads = 256;        // forward block
 constexpr int kRing = 3;             // forward: slab buffers (s, s+1 in use, s+2 arriving)
 constexpr int kOwnerThreads = 512;   // transpose: one warp per source column z
 constexpr int kOwnerWarps = kOwnerThreads / 32;
@@ -71,8 +66,6 @@ constexpr int kChunk = kOwnerThreads;  // transpose: contributing points per chu
 constexpr int kMaxSize = 32;         // forward: bucket starts scanned by one warp
 constexpr int kMaxOwnerSize = 16;    // transpose: 4-bit cell coordinates, 12-bit point index
 constexpr int kMaxDevices = 64;
-
-enum Route : int { kRouteSlab = 0, kRouteV1 = 1 };
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -124,16 +117,6 @@ __device__ __forceinline__ int source_floor_x(const float* __restrict__ t, int x
   int f, c;
   source_axis(t, 0, rel, S, f, c, w);
   return f;
-}
-
-// The 8 corner offsets of source_cell in corner order 000, 100, 001, 101,
-// 010, 110, 011, 111 (x, z, y bits from the lowest).
-__device__ __forceinline__ void corner_offsets(const int* f, const int* c, int S, int* off) {
-  const int xs[2] = {f[0], c[0]}, ys[2] = {f[1], c[1]}, zs[2] = {f[2], c[2]};
-  for (int k = 0; k < 8; ++k) {
-    const int xi = k & 1, zi = (k >> 1) & 1, yi = (k >> 2) & 1;
-    off[k] = (xs[xi] * S + ys[yi]) * S + zs[zi];
-  }
 }
 
 // Copy VEC elements from global to shared memory: cp.async for 16 bytes, a
@@ -597,151 +580,6 @@ rotate3d_owner_transpose_kernel(const T* __restrict__ ct, const float* __restric
 }
 
 // ---------------------------------------------------------------------------
-// Route v1
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rotate3d_forward_kernel(const T* __restrict__ grid, const float* __restrict__ transform,
-                        T* __restrict__ out, int S, int C) {
-  __shared__ int s_off[kPointsPerBlock][8];
-  __shared__ float s_w[kPointsPerBlock][3];
-  const int P = S * S * S;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kPointsPerBlock;
-  const int np = min(kPointsPerBlock, P - p0);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  if (tid < np) {
-    int f[3], c[3];
-    source_cell(transform + (size_t)b * 9, p0 + tid, S, f, c, s_w[tid]);
-    corner_offsets(f, c, S, s_off[tid]);
-  }
-  __syncthreads();
-
-  const T* g = grid + (size_t)b * P * C;
-  T* o = out + ((size_t)b * P + p0) * C;
-  for (int lp = threadIdx.y; lp < np; lp += blockDim.y) {
-    const int* off = s_off[lp];
-    const float dx = s_w[lp][0], dy = s_w[lp][1], dz = s_w[lp][2];
-    for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
-      auto at = [&](int k) -> float { return to_f32(g[(size_t)off[k] * C + ch]); };
-      const float c000 = at(0), c100 = at(1), c001 = at(2), c101 = at(3);
-      const float c010 = at(4), c110 = at(5), c011 = at(6), c111 = at(7);
-      const float c00 = c000 * (1.f - dx) + c100 * dx;
-      const float c01 = c001 * (1.f - dx) + c101 * dx;
-      const float c10 = c010 * (1.f - dx) + c110 * dx;
-      const float c11 = c011 * (1.f - dx) + c111 * dx;
-      const float c0 = c00 * (1.f - dy) + c10 * dy;
-      const float c1 = c01 * (1.f - dy) + c11 * dy;
-      o[(size_t)lp * C + ch] = from_f32<T>(c0 * (1.f - dz) + c1 * dz);
-    }
-  }
-}
-
-// acc: (B, S, S, S, C) float32, zeroed before the launch.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rotate3d_transpose_kernel(const T* __restrict__ ct, const float* __restrict__ transform,
-                          float* __restrict__ acc, int S, int C) {
-  __shared__ int s_off[kPointsPerBlock][8];
-  __shared__ float s_w[kPointsPerBlock][3];
-  const int P = S * S * S;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kPointsPerBlock;
-  const int np = min(kPointsPerBlock, P - p0);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  if (tid < np) {
-    int f[3], c[3];
-    source_cell(transform + (size_t)b * 9, p0 + tid, S, f, c, s_w[tid]);
-    corner_offsets(f, c, S, s_off[tid]);
-  }
-  __syncthreads();
-
-  const T* g = ct + ((size_t)b * P + p0) * C;
-  float* a = acc + (size_t)b * P * C;
-  for (int lp = threadIdx.y; lp < np; lp += blockDim.y) {
-    const int* off = s_off[lp];
-    const float dx = s_w[lp][0], dy = s_w[lp][1], dz = s_w[lp][2];
-    for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
-      const float v = to_f32(g[(size_t)lp * C + ch]);
-      // cotangents of the forward's c0/c1, then of c00, c10, c01, c11
-      const float g0 = v * (1.f - dz), g1 = v * dz;
-      const float g00 = g0 * (1.f - dy), g10 = g0 * dy;
-      const float g01 = g1 * (1.f - dy), g11 = g1 * dy;
-      atomicAdd(a + (size_t)off[0] * C + ch, g00 * (1.f - dx));  // c000
-      atomicAdd(a + (size_t)off[1] * C + ch, g00 * dx);          // c100
-      atomicAdd(a + (size_t)off[2] * C + ch, g01 * (1.f - dx));  // c001
-      atomicAdd(a + (size_t)off[3] * C + ch, g01 * dx);          // c101
-      atomicAdd(a + (size_t)off[4] * C + ch, g10 * (1.f - dx));  // c010
-      atomicAdd(a + (size_t)off[5] * C + ch, g10 * dx);          // c110
-      atomicAdd(a + (size_t)off[6] * C + ch, g11 * (1.f - dx));  // c011
-      atomicAdd(a + (size_t)off[7] * C + ch, g11 * dx);          // c111
-    }
-  }
-}
-
-__global__ void cast_to_bf16_kernel(const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
-                                    size_t n) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    out[i] = __float2bfloat16(in[i]);
-  }
-}
-
-dim3 block_shape(int C) {
-  int lanes = ((C + 31) / 32) * 32;
-  if (lanes > 128) lanes = 128;
-  return dim3(lanes, kThreads / lanes);
-}
-
-cudaError_t forward_v1(const void* grid, const float* transform, void* out, int B, int S, int C,
-                       int dtype, cudaStream_t s) {
-  const int P = S * S * S;
-  const dim3 blocks((P + kPointsPerBlock - 1) / kPointsPerBlock, B);
-  if (dtype == kBFloat16) {
-    rotate3d_forward_kernel<__nv_bfloat16><<<blocks, block_shape(C), 0, s>>>(
-        static_cast<const __nv_bfloat16*>(grid), transform, static_cast<__nv_bfloat16*>(out), S, C);
-  } else if (dtype == kFloat32) {
-    rotate3d_forward_kernel<float><<<blocks, block_shape(C), 0, s>>>(
-        static_cast<const float*>(grid), transform, static_cast<float*>(out), S, C);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t transpose_v1(const void* ct, const float* transform, void* grad, float* scratch, int B,
-                         int S, int C, int dtype, cudaStream_t s) {
-  const int P = S * S * S;
-  const size_t n = (size_t)B * P * C;
-  const dim3 blocks((P + kPointsPerBlock - 1) / kPointsPerBlock, B);
-  float* acc;
-  if (dtype == kFloat32) {
-    acc = static_cast<float*>(grad);
-  } else if (dtype == kBFloat16 && scratch != nullptr) {
-    acc = scratch;
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaMemsetAsync(acc, 0, n * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-  if (dtype == kFloat32) {
-    rotate3d_transpose_kernel<float><<<blocks, block_shape(C), 0, s>>>(
-        static_cast<const float*>(ct), transform, acc, S, C);
-    return cudaGetLastError();
-  }
-  rotate3d_transpose_kernel<__nv_bfloat16><<<blocks, block_shape(C), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(ct), transform, acc, S, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 256;
-  const size_t want = (n + threads - 1) / threads;
-  const int cast_blocks = (int)(want < 4096 ? want : 4096);
-  cast_to_bf16_kernel<<<cast_blocks, threads, 0, s>>>(acc, static_cast<__nv_bfloat16*>(grad), n);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // Launchers of the slab kernels
 // ---------------------------------------------------------------------------
 
@@ -813,16 +651,16 @@ extern "C" int rotate3d_device_limits(int device, int* sms, int* smem_per_block)
 
 // grid/out: (B, S, S, S, C) contiguous, float32 or bfloat16 (dtype code);
 // transform: (B, 3, 3) float32 contiguous, applied about the grid center.
-// route 0 (slab): `window` output-x planes and `group` channels per block,
-// `vec` channels per 16-byte access (or 1); route 1 (v1) ignores those.
-// Returns cudaGetLastError() after the launch.
+// `window` output-x planes and `group` channels per block, `vec` channels
+// per 16-byte access (or 1).  Returns cudaErrorInvalidValue for arguments
+// outside the slab kernel's range (a tile whose shared memory does not fit
+// fails its launch with the same error), else cudaGetLastError() after the
+// launch.
 extern "C" int rotate3d_forward(const void* grid, const float* transform, void* out, int B, int S,
-                                int C, int dtype, int route, int window, int group, int vec,
-                                void* stream) {
+                                int C, int dtype, int window, int group, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteV1) return (int)forward_v1(grid, transform, out, B, S, C, dtype, s);
-  if (route != kRouteSlab || !slab_args_ok(S, C, group, vec, dtype) || window < 1 ||
-      (size_t)window * S * S > 65535 || group / vec > kThreads)
+  if (!slab_args_ok(S, C, group, vec, dtype) || window < 1 || (size_t)window * S * S > 65535 ||
+      group / vec > kThreads)
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     return (int)(vec == 1 ? launch_slab_forward<float, 1>(grid, transform, out, B, S, C, window,
@@ -841,16 +679,14 @@ extern "C" int rotate3d_forward(const void* grid, const float* transform, void* 
 
 // ct/grad: (B, S, S, S, C) contiguous, float32 or bfloat16 (dtype code);
 // transform as for rotate3d_forward.  Writes grad = the transpose of
-// rotate3d_forward applied to ct.  route 0 (owner-computes): `group`
-// channels per block, `vec` channels per 16-byte access (or 1); scratch is
-// unused.  route 1 (v1): scratch is B*S^3*C float32 for a bfloat16 ct
-// (unused, may be null, for float32).  Returns the first CUDA error.
-extern "C" int rotate3d_transpose(const void* ct, const float* transform, void* grad,
-                                  float* scratch, int B, int S, int C, int dtype, int route,
-                                  int group, int vec, void* stream) {
+// rotate3d_forward applied to ct: `group` channels per block, `vec`
+// channels per 16-byte access (or 1).  Returns cudaErrorInvalidValue for
+// arguments outside the owner-computes kernel's range (S <= 16), else the
+// first CUDA error.
+extern "C" int rotate3d_transpose(const void* ct, const float* transform, void* grad, int B,
+                                  int S, int C, int dtype, int group, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteV1) return (int)transpose_v1(ct, transform, grad, scratch, B, S, C, dtype, s);
-  if (route != kRouteSlab || !slab_args_ok(S, C, group, vec, dtype) || S > kMaxOwnerSize)
+  if (!slab_args_ok(S, C, group, vec, dtype) || S > kMaxOwnerSize)
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == kFloat32) {

@@ -16,8 +16,9 @@ each cotangent in its own primal's dtype.
   versions, :func:`fused_adain_plain_with_stats` and
   :func:`fused_adain_backward_plain`.
 - :func:`adain_route` decides, from the shape, the dtype and the card, whether
-  a call takes the one-pass cluster route, the one-pass route over
-  co-resident blocks (:func:`adain_resident_plan`) or the two-pass route.
+  a call takes the one-pass cluster route or the one-pass route over
+  co-resident blocks (:func:`adain_resident_plan`), and raises
+  ``ValueError`` for a slab that neither holds.
 """
 from __future__ import annotations
 
@@ -33,14 +34,13 @@ from torch.autograd.function import once_differentiable
 from confignet_tpu_torch.ops import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTE_CODES = {"one_pass": 0, "two_pass": 1, "resident": 2}
+_ROUTE_CODES = {"one_pass": 0, "resident": 1}
 _THREADS = 256  # kThreads in csrc/adain.cu
 _MAX_CLUSTER = 16  # non-portable cluster size, opted into by the kernel
 _PORTABLE_CLUSTER = 8
 _BLOCKS_PER_SM_ONE_PASS = 3  # shared memory per block is aimed at a third of the limit
 _MIN_ROW_BYTES = 32  # one DRAM sector: narrower channel groups waste bandwidth
 _MAX_ROW_BYTES = 128  # one cache line
-_BLOCKS_PER_SM = 16  # two-pass route: enough chunks to fill every SM several times over
 
 
 class AdainPlan(NamedTuple):
@@ -48,10 +48,9 @@ class AdainPlan(NamedTuple):
     ``parts`` blocks hold each (positions, group) slab in shared memory;
     "resident": ``parts`` co-resident ordinary blocks hold each slab, and
     ``wave`` (sample, group) slabs are in flight at once (a cooperative grid
-    of ``wave * parts`` blocks); "two_pass": ``parts`` chunks of positions,
-    a partials kernel and an apply kernel.  ``group`` channels per block,
-    ``vec`` channels per 16-byte access (1: scalar), ``shared_bytes``
-    dynamic shared memory per block."""
+    of ``wave * parts`` blocks).  ``group`` channels per block, ``vec``
+    channels per 16-byte access (1: scalar), ``shared_bytes`` dynamic
+    shared memory per block."""
     route: str
     group: int
     vec: int
@@ -72,8 +71,6 @@ def _shared_bytes(route: str, tensors: int, positions: int, group: int, vec: int
                   elem: int) -> int:
     """shared_bytes in csrc/adain.cu."""
     red = _lanes(group, vec) * group * 4
-    if route == "two_pass":
-        return red
     per = math.ceil(positions / parts)
     tiles = tensors * (-(-per * group * elem // 16) * 16) + red
     if route == "resident":  # merged (3 x group) and every part's partials (parts x 2 x group)
@@ -89,21 +86,6 @@ def _group_widths(channels: int, vec: int, elem: int):
         if width % vec == 0 and (width * elem >= _MIN_ROW_BYTES or width == channels):
             yield width
         width //= 2
-
-
-def adain_two_pass_plan(batch: int, positions: int, channels: int, dtype: torch.dtype,
-                        sms: int) -> AdainPlan:
-    """The two-pass route's launch: chunks enough for ``_BLOCKS_PER_SM``
-    blocks per SM, at least 4 rows per thread per chunk."""
-    elem = torch.empty((), dtype=dtype).element_size()
-    vec = 16 // elem if channels % (16 // elem) == 0 else 1
-    group = next(_group_widths(channels, vec, elem))
-    lanes = _lanes(group, vec)
-    groups = math.ceil(channels / group)
-    chunks = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / (batch * groups)),
-                        math.ceil(positions / (4 * lanes)), 65535))
-    return AdainPlan("two_pass", group, vec, chunks,
-                     _shared_bytes("two_pass", 1, positions, group, vec, chunks, elem))
 
 
 def adain_resident_plan(batch: int, positions: int, channels: int, dtype: torch.dtype,
@@ -155,9 +137,10 @@ def adain_route(batch: int, positions: int, channels: int, dtype: torch.dtype,
     allows that, the fewest blocks that fit at all.  A 16-block cluster must
     leave room for two blocks per SM (it has to fit the SMs of one GPC).
     Otherwise one pass over co-resident blocks (:func:`adain_resident_plan`)
-    where the card's SMs hold at least one slab at a block each, and two
-    passes where they do not.  Fewer blocks per cluster beat more,
-    smaller ones: each cluster waits for its slowest block before it writes.
+    where the card's SMs hold at least one slab at a block each;
+    ``ValueError`` where they do not (no site of the 128, 256 or 512px
+    generator is such a slab).  Fewer blocks per cluster beat more, smaller
+    ones: each cluster waits for its slowest block before it writes.
     Cached: the wrappers call it on every launch."""
     elem = torch.empty((), dtype=dtype).element_size()
     vec = 16 // elem if channels % (16 // elem) == 0 else 1
@@ -184,10 +167,13 @@ def adain_route(batch: int, positions: int, channels: int, dtype: torch.dtype,
         if plan.shared_bytes <= target:
             return plan
         fallback = fallback or plan
-    return (fallback
-            or adain_resident_plan(batch, positions, channels, dtype, shared_per_block, sms,
-                                   backward)
-            or adain_two_pass_plan(batch, positions, channels, dtype, sms))
+    plan = fallback or adain_resident_plan(batch, positions, channels, dtype, shared_per_block,
+                                           sms, backward)
+    if plan is None:
+        raise ValueError(f"AdaIN's (positions, channels) = ({positions}, {channels}) {dtype} slab "
+                         f"{'(x and g) ' if backward else ''}fits neither a 16-block cluster nor "
+                         f"{sms} SMs at {shared_per_block} bytes of shared memory a block")
+    return plan
 
 
 def fused_adain_plain_with_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -296,16 +282,13 @@ def _aligned(plan: AdainPlan, *tensors: torch.Tensor) -> AdainPlan:
 
 
 def _scratch(plan: AdainPlan, batch: int, channels: int, device: torch.device):
-    """(partials, arrival counters) of one launch, None where the route
-    takes none: float32 (B, parts, 2, C) for the two-pass and co-resident
-    routes, and for the co-resident one an int32 counter per (sample,
-    group), zeroed on every call (a replayed CUDA graph replays the zeroing
-    too)."""
+    """(partials, arrival counters) of one launch, None for the cluster
+    route: for the co-resident route float32 (B, parts, 2, C) and an int32
+    counter per (sample, group), zeroed on every call (a replayed CUDA
+    graph replays the zeroing too)."""
     if plan.route == "one_pass":
         return None, None
     partial = torch.empty((batch, plan.parts, 2, channels), dtype=torch.float32, device=device)
-    if plan.route == "two_pass":
-        return partial, None
     arrived = torch.zeros(batch * math.ceil(channels / plan.group), dtype=torch.int32,
                           device=device)
     return partial, arrived
@@ -332,12 +315,10 @@ def fused_adain_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 
 def launch_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
                    plan: AdainPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel(s) of ``plan`` on checked CUDA tensors.
-    :func:`fused_adain_forward` passes :func:`adain_route`'s plan; a
-    measurement may pass :func:`adain_two_pass_plan` to time the other
-    route on the same shape.  The two-pass and co-resident routes take a
-    float32 scratch of partials, the co-resident one also zeroed arrival
-    counters, one per (sample, group)."""
+    """Launch the forward kernel of ``plan`` on checked CUDA tensors;
+    :func:`fused_adain_forward` passes :func:`adain_route`'s plan.  The
+    co-resident route takes a float32 scratch of partials and zeroed
+    arrival counters, one per (sample, group)."""
     batch, channels = x.shape[0], x.shape[-1]
     out = torch.empty_like(x)
     stats = torch.empty((batch, 2, channels), dtype=torch.float32, device=x.device)
@@ -384,7 +365,7 @@ def fused_adain_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
 
 def launch_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                     bias_dtype: torch.dtype, plan: AdainPlan):
-    """Launch the backward kernel(s) of ``plan`` on checked CUDA tensors (see
+    """Launch the backward kernel of ``plan`` on checked CUDA tensors (see
     :func:`launch_forward`)."""
     batch, channels = x.shape[0], x.shape[-1]
     out_dtypes = [t if t in _DTYPE_CODES else torch.float32 for t in (scale.dtype, bias_dtype)]

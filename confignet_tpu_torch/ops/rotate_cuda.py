@@ -14,8 +14,8 @@
   kernels' wrappers: on a CUDA tensor they launch ``csrc/rotate.cu`` or
   raise; on a CPU tensor they take the plain versions,
   :func:`rotate_3d_grid_plain` and :func:`rotate_3d_grid_transpose_plain`.
-- :func:`rotate_plan` picks each launch's route and tiles from the shape and
-  the card.  The forward's "slab" route (replacing ``_rotate_kernel_full``,
+- :func:`rotate_plan` picks each launch's tiles from the shape and the
+  card.  The forward's "slab" route (replacing ``_rotate_kernel_full``,
   ``rotate_pallas.py:65``) stages the source x-slabs that a window of output
   planes reads in shared memory, so the volume passes through L2 a few times
   instead of once per corner.  The transpose's "owner" route (replacing
@@ -23,11 +23,11 @@
   one source x-slab of the gradient to sum in a fixed order and write once:
   one launch, no float atomics, no scratch, and two launches agree bit for
   bit.  The bound of both is bytes: the volume (ct) read once and the
-  output (gradient) written once.  ``csrc/rotate.cu`` has the design.
-  Route "v1" keeps the first kernels (corners read from global memory; an
-  atomic transpose) for measurements and tests:
+  output (gradient) written once.  ``csrc/rotate.cu`` has the design.  The
+  forward takes S <= 32 and the transpose S <= 16 (the generator's volume
+  is S = 16); :func:`rotate_plan` raises ``ValueError`` outside that range.
   :func:`launch_rotate_forward` / :func:`launch_rotate_transpose` take any
-  plan, and :func:`rotate_v1_plan` makes one.  No wrapper falls back to it.
+  plan, for the tile sweep.
 - :func:`rotate_3d_grid_tiled_plain` and
   :func:`rotate_3d_grid_transpose_tiled_plain` follow the slab kernels'
   tiles, buckets and summation order in torch, for the CPU tests; nothing on
@@ -52,14 +52,12 @@ from confignet_tpu_torch.core.transforms import _source_coords, rotate_3d_grid
 from confignet_tpu_torch.ops import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTE_CODES = {"slab": 0, "owner": 0, "v1": 1}
 _THREADS = 256  # kThreads in csrc/rotate.cu: forward block
 _OWNER_WARPS = 16  # kOwnerWarps: transpose block
 _RING = 3  # kRing: forward slab buffers
 _CHUNK = 512  # kChunk: transpose points per chunk
 _MAX_SIZE = 32  # kMaxSize: the slab forward takes S <= 32
 _MAX_OWNER_SIZE = 16  # kMaxOwnerSize: the owner-computes transpose takes S <= 16
-_POINTS_PER_BLOCK_V1 = 32
 # forward tiles, first that fits: (output-x planes per block, bytes of a slab
 # row); the order comes from ``chip_smoke.py --rotate-sweep`` at S=16, C=128
 _FORWARD_TILES = ((2, 128), (4, 64), (2, 64), (1, 64), (1, 32))
@@ -70,12 +68,10 @@ H100_LIMITS = (232448, 132)
 
 
 class RotatePlan(NamedTuple):
-    """How one call is launched.  ``route`` "slab" (forward), "owner"
-    (transpose) or "v1"; ``window`` output-x planes per forward block (1 for
-    the transpose: one source slab); ``group`` channels per block; ``vec``
-    channels per 16-byte access (1: scalar); ``blocks`` in the launch;
-    ``shared_bytes`` of dynamic shared memory per block."""
-    route: str
+    """How one call is launched: ``window`` output-x planes per forward
+    block (1 for the transpose: one source slab); ``group`` channels per
+    block; ``vec`` channels per 16-byte access (1: scalar); ``blocks`` in
+    the launch; ``shared_bytes`` of dynamic shared memory per block."""
     window: int
     group: int
     vec: int
@@ -105,11 +101,6 @@ def transpose_shared_bytes(size: int, group: int) -> int:
             + _align16((_OWNER_WARPS + 1) * 4))
 
 
-def rotate_v1_plan(batch: int, size: int, channels: int) -> RotatePlan:
-    """The first kernels' launch (route "v1"): one block per 32 points."""
-    return RotatePlan("v1", 1, channels, 1, batch * math.ceil(size ** 3 / _POINTS_PER_BLOCK_V1), 0)
-
-
 @functools.lru_cache(maxsize=1024)
 def rotate_plan(batch: int, size: int, channels: int, dtype: torch.dtype, shared_per_block: int,
                 sms: int, transpose: bool = False) -> RotatePlan:
@@ -121,22 +112,25 @@ def rotate_plan(batch: int, size: int, channels: int, dtype: torch.dtype, shared
     two blocks per SM, else the first that fits one; a window is cut to
     fewer planes while the launch has fewer blocks than SMs.  Transpose:
     ``_TRANSPOSE_GROUP`` channels per block (or all, if fewer).  16-byte
-    accesses where the channel count allows.  Route "v1" only where the slab
-    kernels cannot take the shape: S > 32 (forward) or S > 16 (transpose),
-    or no tile fits in shared memory.  Cached: the wrappers call it on every
-    launch."""
+    accesses where the channel count allows.  Raises ``ValueError`` where
+    the kernels cannot take the shape: S > 32 (forward) or S > 16
+    (transpose), or no tile fits in shared memory.  Cached: the wrappers
+    call it on every launch."""
     elem = torch.empty((), dtype=dtype).element_size()
     wide = 16 // elem
     vec = wide if channels % wide == 0 else 1
     if transpose:
         group = min(channels, _TRANSPOSE_GROUP)
         shared = transpose_shared_bytes(size, group)
-        if not 1 <= size <= _MAX_OWNER_SIZE or shared > shared_per_block:
-            return rotate_v1_plan(batch, size, channels)
-        return RotatePlan("owner", 1, group, vec, batch * size * math.ceil(channels / group),
-                          shared)
+        if not 1 <= size <= _MAX_OWNER_SIZE:
+            raise ValueError(f"the rotation's transpose kernel takes 1 <= S <= "
+                             f"{_MAX_OWNER_SIZE}, got S={size}")
+        if shared > shared_per_block:
+            raise ValueError(f"the rotation's transpose at S={size}, {group} channels a block "
+                             f"needs {shared} bytes of shared memory, the card has {shared_per_block}")
+        return RotatePlan(1, group, vec, batch * size * math.ceil(channels / group), shared)
     if not 1 <= size <= _MAX_SIZE:
-        return rotate_v1_plan(batch, size, channels)
+        raise ValueError(f"the rotation's forward kernel takes 1 <= S <= {_MAX_SIZE}, got S={size}")
     fitting = []
     for window, row_bytes in _FORWARD_TILES:
         window = min(window, size)
@@ -146,9 +140,10 @@ def rotate_plan(batch: int, size: int, channels: int, dtype: torch.dtype, shared
         shared = forward_shared_bytes(size, window, group, elem)
         if shared <= shared_per_block:
             blocks = batch * math.ceil(size / window) * math.ceil(channels / group)
-            fitting.append(RotatePlan("slab", window, group, vec, blocks, shared))
+            fitting.append(RotatePlan(window, group, vec, blocks, shared))
     if not fitting:
-        return rotate_v1_plan(batch, size, channels)
+        raise ValueError(f"no tile of the rotation's forward at S={size}, C={channels} fits "
+                         f"{shared_per_block} bytes of shared memory")
     two_per_sm = [p for p in fitting if 2 * (p.shared_bytes + 1024) <= shared_per_block]
     plan = (two_per_sm or fitting)[0]
     while plan.blocks < sms and plan.window > 1:
@@ -282,9 +277,9 @@ def _library() -> ctypes.CDLL:
         lib.rotate3d_device_limits.restype = i32
         lib.rotate3d_device_limits.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         lib.rotate3d_forward.restype = i32
-        lib.rotate3d_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+        lib.rotate3d_forward.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
         lib.rotate3d_transpose.restype = i32
-        lib.rotate3d_transpose.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.rotate3d_transpose.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
     return lib
 
 
@@ -325,7 +320,7 @@ def _aligned(plan: RotatePlan, *tensors: torch.Tensor) -> RotatePlan:
 def rotate_3d_grid_forward(grid: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     """The forward kernel's wrapper (no autograd): rotate a (B, S, S, S, C)
     grid by (B, 3, 3) transforms about its center.  CUDA tensors go through
-    the kernel on the route :func:`rotate_plan` picks (or raise); CPU tensors
+    the kernel on :func:`rotate_plan`'s tiles (or raise); CPU tensors
     through :func:`rotate_3d_grid_plain`."""
     if grid.device.type == "cpu":
         return rotate_3d_grid_plain(grid, transform)
@@ -338,8 +333,8 @@ def rotate_3d_grid_forward(grid: torch.Tensor, transform: torch.Tensor) -> torch
 def launch_rotate_forward(grid: torch.Tensor, transform: torch.Tensor,
                           plan: RotatePlan) -> torch.Tensor:
     """Launch the forward kernel of ``plan`` on a checked CUDA grid.
-    :func:`rotate_3d_grid_forward` passes :func:`rotate_plan`'s plan; a
-    measurement or test may pass another, e.g. :func:`rotate_v1_plan`."""
+    :func:`rotate_3d_grid_forward` passes :func:`rotate_plan`'s plan;
+    ``chip_smoke.py --rotate-sweep`` passes each tile that fits."""
     batch, size, channels = grid.shape[0], grid.shape[1], grid.shape[4]
     out = torch.empty_like(grid)
     if batch == 0 or channels == 0:
@@ -349,7 +344,7 @@ def launch_rotate_forward(grid: torch.Tensor, transform: torch.Tensor,
     with torch.cuda.device(grid.device):
         err = _library().rotate3d_forward(
             grid.data_ptr(), transform.data_ptr(), out.data_ptr(), batch, size, channels,
-            _DTYPE_CODES[grid.dtype], _ROUTE_CODES[plan.route], plan.window, plan.group, plan.vec,
+            _DTYPE_CODES[grid.dtype], plan.window, plan.group, plan.vec,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotate3d_forward launch failed ({plan}): cudaError {err}")
@@ -360,7 +355,7 @@ def launch_rotate_forward(grid: torch.Tensor, transform: torch.Tensor,
 def rotate_3d_grid_transpose(ct: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     """The transpose kernel's wrapper: the gradient with respect to the grid
     for the output cotangent ``ct``.  CUDA tensors go through the kernel on
-    the route :func:`rotate_plan` picks (or raise); CPU tensors through
+    :func:`rotate_plan`'s tiles (or raise); CPU tensors through
     :func:`rotate_3d_grid_transpose_plain`."""
     if ct.device.type == "cpu":
         return rotate_3d_grid_transpose_plain(ct, transform)
@@ -373,23 +368,18 @@ def rotate_3d_grid_transpose(ct: torch.Tensor, transform: torch.Tensor) -> torch
 
 def launch_rotate_transpose(ct: torch.Tensor, transform: torch.Tensor,
                             plan: RotatePlan) -> torch.Tensor:
-    """Launch the transpose kernel(s) of ``plan`` on a checked CUDA ct (see
-    :func:`launch_rotate_forward`).  Route "v1" takes a float32 scratch for
-    a bf16 ct; the owner route takes none."""
+    """Launch the transpose kernel of ``plan`` on a checked CUDA ct (see
+    :func:`launch_rotate_forward`)."""
     batch, size, channels = ct.shape[0], ct.shape[1], ct.shape[4]
     grad = torch.empty_like(ct)
     if batch == 0 or channels == 0:
         return grad
     transform = transform.to(torch.float32).contiguous()
     plan = _aligned(plan, ct, grad)
-    scratch = (torch.empty(ct.shape, dtype=torch.float32, device=ct.device)
-               if plan.route == "v1" and ct.dtype == torch.bfloat16 else None)
     with torch.cuda.device(ct.device):
         err = _library().rotate3d_transpose(
-            ct.data_ptr(), transform.data_ptr(), grad.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), batch, size, channels,
-            _DTYPE_CODES[ct.dtype], _ROUTE_CODES[plan.route], plan.group, plan.vec,
-            torch.cuda.current_stream().cuda_stream)
+            ct.data_ptr(), transform.data_ptr(), grad.data_ptr(), batch, size, channels,
+            _DTYPE_CODES[ct.dtype], plan.group, plan.vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotate3d_transpose launch failed ({plan}): cudaError {err}")
     cuda_build.count_launch(rotate_3d_grid_transpose)

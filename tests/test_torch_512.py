@@ -37,7 +37,7 @@ from helpers import TINY_FIRST_STAGE_CONFIG, write_reference_checkpoint
 from test_torch_second_stage import give_heads_weights
 from confignet_tpu_torch.core import model_io
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_resident_plan, adain_route, adain_two_pass_plan, fused_adain)
+    adain_resident_plan, adain_route, fused_adain)
 from confignet_tpu_torch.serving import ConfigNetServer
 from confignet_tpu_torch.training.latent_gan import LatentGAN
 from confignet_tpu_torch.training.second_stage import ConfigNet
@@ -159,12 +159,11 @@ def test_release_loads_like_jax(servers, tmp_path):
 
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_adain_route_takes_two_passes_at_the_512_site(dtype, backward):
+def test_adain_route_takes_the_resident_route_at_the_512_site(dtype, backward):
     """At every batch of the 512 path (the fine-tune's 1, the G step's 12,
     the D updates' 24, a serving chunk's 32) the 512 site's slab is too
     large for a 16-block cluster, forward and backward, so the call takes
-    the co-resident route (one pass); the two-pass route that chip_smoke.py
-    times beside it keeps a grid within the card's limits."""
+    the co-resident route (one pass)."""
     positions, channels = SITE_512
     for batch in (1, 12, 24, 32):
         plan = adain_route(batch, positions, channels, dtype, *H100_LIMITS, backward)
@@ -172,9 +171,6 @@ def test_adain_route_takes_two_passes_at_the_512_site(dtype, backward):
                                            backward)
         assert plan.route == "resident" and channels % plan.group == 0, plan
         assert plan.vec == 16 // torch.empty((), dtype=dtype).element_size()
-        two = adain_two_pass_plan(batch, positions, channels, dtype, H100_LIMITS[1])
-        assert two.route == "two_pass" and channels % two.group == 0, two
-        assert 1 <= two.parts <= 65535 and two.shared_bytes <= 48 * 1024, two
 
 
 def resident_coverage(plan, batch, positions, channels):

@@ -10,13 +10,12 @@ import torch
 
 from confignet_tpu_torch.core.transforms import euler_angles_to_matrix
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_route, adain_two_pass_plan, device_limits, fused_adain,
+    adain_route, device_limits, fused_adain,
     fused_adain_backward, fused_adain_backward_plain, fused_adain_forward, fused_adain_plain,
-    fused_adain_plain_with_stats, launch_backward, launch_forward)
+    fused_adain_plain_with_stats, launch_forward)
 from confignet_tpu_torch.ops.rotate_cuda import (
-    device_limits as rotate_device_limits, launch_rotate_forward, launch_rotate_transpose,
     rotate_3d_grid_forward, rotate_3d_grid_kernel, rotate_3d_grid_kernel_train, rotate_3d_grid_plain,
-    rotate_3d_grid_transpose, rotate_3d_grid_transpose_plain, rotate_plan, rotate_v1_plan)
+    rotate_3d_grid_transpose, rotate_3d_grid_transpose_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -76,29 +75,15 @@ def _rotate_inputs(case, size, channels, dtype, device, seed, batch=5):
     return grid.to(device, dtype), _transforms(case, batch, rng).to(device)
 
 
-def _rotate_plans(grid, transpose):
-    """The plan the wrapper takes and route v1."""
-    batch, size, channels = grid.shape[0], grid.shape[1], grid.shape[4]
-    picked = rotate_plan(batch, size, channels, grid.dtype, *rotate_device_limits(grid.device.index),
-                         transpose=transpose)
-    assert picked.route == ("owner" if transpose else "slab"), picked
-    return {"plan": picked, "v1": rotate_v1_plan(batch, size, channels)}
-
-
-@pytest.mark.parametrize("route", ["plan", "v1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case,size,channels", ROTATE_CASES)
-def test_rotate_kernel_matches_plain(cuda, route, dtype, case, size, channels):
-    """The forward kernel on the slab route and on route v1 against its
-    plain version, at the reference poses and degenerate transforms."""
+def test_rotate_kernel_matches_plain(cuda, dtype, case, size, channels):
+    """The forward kernel on the slab route against its plain version, at
+    the reference poses and degenerate transforms."""
     grid, transform = _rotate_inputs(case, size, channels, dtype, cuda, 0)
-    plan = _rotate_plans(grid, False)[route]
     want = rotate_3d_grid_plain(grid, transform)
     before = rotate_3d_grid_forward.launches
-    if route == "plan":
-        got = rotate_3d_grid_kernel(grid, transform)
-    else:
-        got = launch_rotate_forward(grid, transform, plan)
+    got = rotate_3d_grid_kernel(grid, transform)
     torch.cuda.synchronize()
     assert rotate_3d_grid_forward.launches == before + 1
     assert got.dtype == dtype and got.shape == grid.shape
@@ -155,10 +140,10 @@ def test_adain_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("shape", ADAIN_SHAPES + ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SITE_512
                          + ADAIN_RESIDENT_ODD)
 def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
-    """The route adain_route picks and the two-pass route forced on the same
-    shape, each against the plain version; (2, 256, 256, 16) in float32 and
-    the 512 site take the co-resident route by themselves.  The picked
-    route's two launches agree bit for bit (fixed-order merges)."""
+    """Both forward routes, the cluster route and the co-resident one, each
+    on the shapes adain_route sends to it, against the plain version;
+    (2, 256, 256, 16) in float32 and the 512 site take the co-resident
+    route.  Two launches agree bit for bit (fixed-order merges)."""
     x, _, scale, bias = adain_inputs(shape, dtype, cuda, 5)
     batch, channels = shape[0], shape[-1]
     positions = x.numel() // (batch * channels)
@@ -171,14 +156,11 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
     if shape in ADAIN_SITE_512 + ADAIN_RESIDENT_ODD:
         assert picked.route == "resident"
     want, want_stats = fused_adain_plain_with_stats(x, scale, bias)
-    for plan in (picked, adain_two_pass_plan(batch, positions, channels, dtype, sms)):
-        got, stats = launch_forward(x, scale, bias, 1e-3, plan)
-        torch.cuda.synchronize()
-        assert checked_error(got, want) <= TOL[dtype]["adain"], plan
-        assert sum_error(stats, want_stats) <= 1e-4, plan
     got, stats = launch_forward(x, scale, bias, 1e-3, picked)
     again, stats_again = launch_forward(x, scale, bias, 1e-3, picked)
     torch.cuda.synchronize()
+    assert checked_error(got, want) <= TOL[dtype]["adain"], picked
+    assert sum_error(stats, want_stats) <= 1e-4, picked
     assert torch.equal(got, again) and torch.equal(stats, stats_again), picked
 
 
@@ -186,9 +168,9 @@ def test_adain_both_forward_routes_match_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("shape", ADAIN_SITES_256 + ADAIN_SITES_256_B1 + ADAIN_SHAPES + ADAIN_SITE_512
                          + ADAIN_RESIDENT_ODD)
 def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
-    """The backward kernel on its own route and on the forced two-pass route
-    against its plain version on the same saved statistics; two launches
-    agree bit for bit (fixed-order sums, no atomics)."""
+    """The backward kernel on the route adain_route picks against its plain
+    version on the same saved statistics; two launches agree bit for bit
+    (fixed-order sums, no atomics)."""
     x, g, scale, bias = adain_inputs(shape, dtype, cuda, 6)
     _, stats = fused_adain_forward(x, scale, bias)
     want = fused_adain_backward_plain(x, g, stats, scale, bias.dtype)
@@ -199,49 +181,33 @@ def test_adain_backward_kernel_matches_plain(cuda, dtype, shape):
     assert fused_adain_backward.launches == before + 2
     batch, channels = shape[0], shape[-1]
     positions = x.numel() // (batch * channels)
-    forced = launch_backward(x, g, stats, scale, bias.dtype,
-                             adain_two_pass_plan(batch, positions, channels, dtype,
-                                                 device_limits(x.device.index)[1]))
     if shape in ADAIN_SITE_512 + ADAIN_RESIDENT_ODD:
         assert adain_route(batch, positions, channels, dtype, *device_limits(x.device.index),
                            backward=True).route == "resident"
-    for name, a, b, c, d in zip(("dx", "dscale", "dbias"), got, again, want, forced):
+    for name, a, b, c in zip(("dx", "dscale", "dbias"), got, again, want):
         assert a.dtype == c.dtype and a.shape == c.shape, name
         assert torch.equal(a, b), name
         err = checked_error(a, c) if name == "dx" else sum_error(a, c)
         tol = TOL[dtype]["adain"] if name == "dx" or dtype == torch.bfloat16 else 1e-4
         assert err <= tol, (name, err)
-        err = checked_error(d, c) if name == "dx" else sum_error(d, c)
-        assert err <= tol, (name, "two_pass", err)
 
 
-@pytest.mark.parametrize("route", ["plan", "v1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case,size,channels", ROTATE_CASES)
-def test_transpose_kernel_matches_plain(cuda, route, dtype, case, size, channels):
-    """The transpose kernel on the owner-computes route and on route v1
-    against its plain version (index_add_ in float32).  The owner route sums
-    every cell in a fixed order, so its two launches are equal bit for bit;
-    v1's float atomics vary the last bits, so its two agree only within the
-    tolerance."""
+def test_transpose_kernel_matches_plain(cuda, dtype, case, size, channels):
+    """The transpose kernel on the owner-computes route against its plain
+    version (index_add_ in float32).  It sums every cell in a fixed order,
+    so its two launches are equal bit for bit."""
     ct, transform = _rotate_inputs(case, size, channels, dtype, cuda, 3, batch=12)
-    plan = _rotate_plans(ct, True)[route]
     before = rotate_3d_grid_transpose.launches
-    if route == "plan":
-        got = rotate_3d_grid_transpose(ct, transform)
-        again = rotate_3d_grid_transpose(ct, transform)
-    else:
-        got = launch_rotate_transpose(ct, transform, plan)
-        again = launch_rotate_transpose(ct, transform, plan)
+    got = rotate_3d_grid_transpose(ct, transform)
+    again = rotate_3d_grid_transpose(ct, transform)
     torch.cuda.synchronize()
     assert rotate_3d_grid_transpose.launches == before + 2
     assert got.dtype == dtype and got.shape == ct.shape
     want = rotate_3d_grid_transpose_plain(ct, transform)
     assert checked_error(got, want) <= TOL[dtype]["transpose"]
-    if route == "plan":
-        assert torch.equal(again, got)
-    else:
-        assert checked_error(again, got) <= TOL[dtype]["transpose"]
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,17 +16,19 @@ from confignet_tpu.ops.conv3d import Conv3d as JaxConv3d
 from confignet_tpu.ops.norms import adain_modulate as jax_adain_modulate
 from confignet_tpu.ops.rotate_pallas import _pack_point_inputs, _rotate_grad_grid, rotate_3d_grid_pallas
 from confignet_tpu.ops.upconv import UpConv as JaxUpConv
+from benchmark.counts.kernels import adain_sites, rotation_volume
 from confignet_tpu_torch.core import transforms
 from confignet_tpu_torch.core.model_io import load_jax_params
 from confignet_tpu_torch.ops import norms
 from confignet_tpu_torch.ops.adain_cuda import (
-    adain_resident_plan, adain_route, adain_two_pass_plan, fused_adain, fused_adain_backward,
+    adain_resident_plan, adain_route, fused_adain, fused_adain_backward,
     fused_adain_backward_plain, fused_adain_plain, fused_adain_plain_with_stats)
 from confignet_tpu_torch.ops.conv3d import Conv3d, conv_channels_last
 from confignet_tpu_torch.ops.norms import adain_modulate
 from confignet_tpu_torch.ops.rotate_cuda import (
     rotate_3d_grid_kernel, rotate_3d_grid_kernel_train, rotate_3d_grid_plain,
-    rotate_3d_grid_transpose_plain)
+    rotate_3d_grid_transpose_plain, rotate_plan)
+from confignet_tpu_torch.training.first_stage import DEFAULT_CONFIG
 from confignet_tpu_torch.ops.upconv import UpConv
 
 torch.set_num_threads(1)
@@ -198,7 +200,7 @@ def test_adain_route_takes_one_pass_at_256px(dtype, backward):
     (the fine-tune's 1 too) takes the one-pass cluster route, within the
     card's limits; the 512px site does not fit a cluster and takes one pass
     over co-resident blocks, its grid one block per SM at most; a slab
-    larger than the card's SMs hold takes two passes."""
+    larger than the card's SMs hold is refused."""
     sites = ((512, 256), (4096, 128), (256, 256), (1024, 64), (4096, 32), (16384, 32))
     for batch in (1, 12, 24, 32, 256):
         for positions, channels in sites:
@@ -214,11 +216,38 @@ def test_adain_route_takes_one_pass_at_256px(dtype, backward):
     elem = torch.empty((), dtype=dtype).element_size()
     larger = H100[0] * H100[1] // (16 * elem) + 1  # rows of 16 channels: more than the SMs hold
     assert adain_resident_plan(2, larger, 16, dtype, *H100, backward) is None
-    two = adain_route(2, larger, 16, dtype, *H100, backward)
-    assert two.route == "two_pass" and 1 <= two.parts <= 65535
-    assert two == adain_two_pass_plan(2, larger, 16, dtype, 132)
+    with pytest.raises(ValueError, match=f"\\({larger}, 16\\)"):
+        adain_route(2, larger, 16, dtype, *H100, backward)
     odd = adain_route(2, 9, 5, dtype, *H100, backward)
     assert (odd.route, odd.group, odd.vec, odd.parts) == ("one_pass", 5, 1, 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("size", [128, 256, 512])
+def test_every_generator_launch_has_a_kernel_route(size, sms, dtype, backward):
+    """Every AdaIN site and the rotation volume of the 128, 256 and 512px
+    generators (derived from the config as the benchmark's kernel counts
+    derive them), at batches 1 to 256, get a plan on H100 SXM (132 SMs) and
+    PCIe (114 SMs) cards: the cluster or co-resident route for AdaIN, the
+    slab forward or the owner-computes transpose for the rotation, each
+    within the card's limits.  No launch of the port falls outside the
+    kernels' range, where the planners raise."""
+    model = dict(DEFAULT_CONFIG, output_shape=(size, size, 3))
+    smem = H100[0]
+    side, volume_channels = rotation_volume(model)
+    for batch in (1, 6, 12, 24, 32, 64, 128, 256):
+        for positions, channels in adain_sites(model):
+            plan = adain_route(batch, positions, channels, dtype, smem, sms, backward)
+            assert plan.shared_bytes <= smem and channels % plan.vec == 0, plan
+            if plan.route == "one_pass":
+                assert plan.parts <= 16, plan
+            else:
+                assert plan.route == "resident" and plan.wave * plan.parts <= sms, plan
+        rotation = rotate_plan(batch, side, volume_channels, dtype, smem, sms,
+                               transpose=backward)
+        assert 0 < rotation.shared_bytes <= smem and rotation.blocks >= batch, rotation
 
 
 def test_adain_partial_axes_stays_plain():

@@ -140,7 +140,6 @@ def test_rotate_plan_takes_the_slab_routes_at_main_path_shapes(dtype, transpose)
     elem = torch.empty((), dtype=dtype).element_size()
     for batch in (12, 24, 32, 256):
         plan = rotate_plan(batch, 16, 128, dtype, SMEM, SMS, transpose=transpose)
-        assert plan.route == ("owner" if transpose else "slab"), plan
         assert plan.vec == 16 // elem and plan.group % plan.vec == 0, plan
         assert plan.shared_bytes <= SMEM, plan
         want = (transpose_shared_bytes(16, plan.group) if transpose
@@ -154,13 +153,22 @@ def test_rotate_plan_takes_the_slab_routes_at_main_path_shapes(dtype, transpose)
 @pytest.mark.parametrize("transpose", [False, True])
 def test_rotate_plan_edges(transpose):
     """Three channels take scalar accesses in one ragged group; a grid larger
-    than the slab kernels take (S > 32; S > 16 for the transpose) goes to
-    route v1, as a function of the shape alone."""
+    than the kernels take (S > 32; S > 16 for the transpose) is refused with
+    a ValueError that names S and the limit, as a function of the shape
+    alone."""
     odd = rotate_plan(2, 8, 3, torch.bfloat16, SMEM, SMS, transpose=transpose)
-    assert (odd.route, odd.vec, odd.group) == ("owner" if transpose else "slab", 1, 3)
+    assert (odd.vec, odd.group) == (1, 3)
     cover, _ = _coverage(odd, 8, 3, transpose)
     assert (cover == 1).all()
-    big = rotate_plan(2, 40, 16, torch.float32, SMEM, SMS, transpose=transpose)
-    assert big.route == "v1" and big.blocks == 2 * -(-40 ** 3 // 32)
-    mid = rotate_plan(2, 24, 16, torch.float32, SMEM, SMS, transpose=transpose)
-    assert mid.route == ("v1" if transpose else "slab")
+    limit = 16 if transpose else 32
+    with pytest.raises(ValueError, match=f"S <= {limit}, got S=40"):
+        rotate_plan(2, 40, 16, torch.float32, SMEM, SMS, transpose=transpose)
+    if transpose:
+        with pytest.raises(ValueError, match="S <= 16, got S=24"):
+            rotate_plan(2, 24, 16, torch.float32, SMEM, SMS, transpose=True)
+    else:
+        mid = rotate_plan(2, 24, 16, torch.float32, SMEM, SMS)
+        cover, _ = _coverage(mid, 24, 16, False)
+        assert (cover == 1).all()
+    with pytest.raises(ValueError, match="shared memory"):
+        rotate_plan(2, 16, 128, torch.float32, 4096, SMS, transpose=transpose)
