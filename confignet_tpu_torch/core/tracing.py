@@ -33,10 +33,12 @@ A counter keeps a process-wide total (:data:`totals`) and a second tally
 thread: a benchmark's traced slice.  Counters: ``rows.requested`` and
 ``rows.run`` (rows asked for, and rows the chunks ran with their padding),
 ``graph.first_call_s`` (the host seconds of the ``graph.first_call``
-spans) and ``conv.double_backward`` (second-order calls of the
+spans), ``conv.double_backward`` (second-order calls of the
 discriminator trunks' convolutions, ops/conv_double_backward.py: 1 a conv
-on each R1 head's path; it ticks on the host at an eager step and at a
-capture, never at a replay, so tests read it and no benchmark metric does).
+on each R1 head's path) and ``resnet.channels_first`` (ResNet50 trunk calls
+that run channels-first inside, models/backbones/resnet.py: 1 a call).  The
+last two tick on the host at an eager call and at a capture, never at a
+replay, so tests read them and no benchmark metric does.
 """
 from __future__ import annotations
 

@@ -10,6 +10,16 @@ confignet/dnn_models/real_encoder.py:13).
 - every conv has a bias; kernels are flax's ``he_normal``;
 - norm "frozen" is inference-mode batch norm (eps 1.001e-5), "group" is
   flax ``GroupNorm(min(32, C))`` with eps 1e-6.
+
+The trunk takes (B, H, W, 3) and gives (B, 2048), as the JAX trunk does.
+Inside, a trunk whose convolutions compute in float32, called with autograd
+off (serving, encoding), runs channels-first (NCHW): cuDNN's float32
+kernels are native there, and channels-last tensors cost a layout transpose
+on each side of every convolution.  A bfloat16 trunk runs channels-last,
+where the tensor cores' kernels are native, and so does a call that records
+a backward: cuDNN's float32 weight gradients of the 1x1 convolutions are
+several times slower on NCHW tensors.  One forward serves both layouts
+(``channels_first`` below).
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from confignet_tpu_torch.core import tracing
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.models.blocks import Conv2d
 
@@ -50,14 +61,17 @@ class FrozenBatchNorm(nn.Module):
         inv = torch.rsqrt(self.moving_variance + self.eps) * self.gamma
         return inv, self.beta - self.moving_mean * inv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
         scale, shift = self.scale_shift()
+        if channels_first:
+            scale, shift = scale[:, None, None], shift[:, None, None]
         return x * scale + shift
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(num_groups)`` on (B, H, W, C): statistics in
-    float32, eps 1e-6, parameters ``scale``/``bias``."""
+    """flax ``nn.GroupNorm(num_groups)`` on (B, H, W, C), or (B, C, H, W)
+    with ``channels_first``: statistics in float32, eps 1e-6, parameters
+    ``scale``/``bias``."""
 
     def __init__(self, num_groups: int, features: int, eps: float = 1e-6):
         super().__init__()
@@ -71,7 +85,9 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
+        if channels_first:
+            return F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.eps)
         out = F.group_norm(x.float().movedim(-1, 1), self.num_groups, self.scale, self.bias,
                            self.eps)
         return out.movedim(1, -1)
@@ -90,6 +106,25 @@ def _resnet_norm(norm: str, features: int) -> nn.Module:
 STEM_CONV_NORM = ("stem_conv", "stem_bn")
 BLOCK_CONV_NORMS = (("shortcut_conv", "shortcut_bn"), ("conv1", "bn1"), ("conv2", "bn2"),
                     ("conv3", "bn3"))
+
+
+def _computes_in_float32(conv: Conv2d) -> bool:
+    """Whether ``conv`` computes in float32 (no lower compute dtype set):
+    the test for the channels-first route and for :func:`fold_frozen_norms`."""
+    return conv.dtype in (None, torch.float32)
+
+
+def _conv_norm(conv: Conv2d, norm: nn.Module, x: torch.Tensor,
+               channels_first: bool) -> torch.Tensor:
+    """``norm(conv(x))`` in either layout; a folded norm is ``nn.Identity``."""
+    y = conv(x, channels_first)
+    return y if isinstance(norm, nn.Identity) else norm(y, channels_first)
+
+
+def _pad_spatial(x: torch.Tensor, pad: int, channels_first: bool,
+                 value: float = 0.0) -> torch.Tensor:
+    pads = (pad,) * 4 if channels_first else (0, 0) + (pad,) * 4
+    return F.pad(x, pads, value=value)
 
 
 class BottleneckBlock(nn.Module):
@@ -112,13 +147,13 @@ class BottleneckBlock(nn.Module):
         self.conv3 = conv(width, width * 4, 1)
         self.bn3 = _resnet_norm(norm, width * 4)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
         shortcut = x
         if self.project_shortcut:
-            shortcut = self.shortcut_bn(self.shortcut_conv(x))
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+            shortcut = _conv_norm(self.shortcut_conv, self.shortcut_bn, x, channels_first)
+        y = torch.relu(_conv_norm(self.conv1, self.bn1, x, channels_first))
+        y = torch.relu(_conv_norm(self.conv2, self.bn2, y, channels_first))
+        y = _conv_norm(self.conv3, self.bn3, y, channels_first)
         return torch.relu(y + shortcut)
 
 
@@ -144,13 +179,28 @@ class ResNet50(nn.Module):
                 features = width * 4
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (0, 0, 3, 3, 3, 3))
-        x = torch.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.pad(x, (0, 0, 1, 1, 1, 1), value=float("-inf"))
-        x = F.max_pool2d(x.movedim(-1, 1), 3, stride=2).movedim(1, -1)
+        """(B, H, W, 3) -> (B, 2048).  A float32 trunk called with autograd
+        off transposes its 3-channel input once and runs channels-first from
+        the stem to the pooling; any other call runs channels-last."""
+        channels_first = _computes_in_float32(self.stem_conv) and not torch.is_grad_enabled()
+        if channels_first:
+            tracing.count("resnet.channels_first")
+            x = x.movedim(-1, 1).contiguous()
+        return self.features(x, channels_first)
+
+    def features(self, x: torch.Tensor, channels_first: bool) -> torch.Tensor:
+        """The pooled features of (B, H, W, 3), or of (B, 3, H, W) with
+        ``channels_first``."""
+        x = _pad_spatial(x, 3, channels_first)
+        x = torch.relu(_conv_norm(self.stem_conv, self.stem_bn, x, channels_first))
+        x = _pad_spatial(x, 1, channels_first, float("-inf"))
+        if channels_first:
+            x = F.max_pool2d(x, 3, stride=2)
+        else:
+            x = F.max_pool2d(x.movedim(-1, 1), 3, stride=2).movedim(1, -1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
-        return x.mean(dim=(1, 2))
+            x = getattr(self, name)(x, channels_first)
+        return x.mean(dim=(2, 3) if channels_first else (1, 2))
 
 
 @torch.no_grad()
@@ -172,7 +222,7 @@ def fold_frozen_norms(resnet: ResNet50) -> int:
             if not isinstance(norm, FrozenBatchNorm):
                 continue
             conv = getattr(owner, conv_name)
-            if conv.dtype not in (None, torch.float32):
+            if not _computes_in_float32(conv):
                 continue
             scale, shift = norm.scale_shift()
             conv.weight.mul_(scale.view(-1, *(1,) * (conv.weight.ndim - 1)))

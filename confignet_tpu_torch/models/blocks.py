@@ -24,7 +24,8 @@ from torch import nn
 
 from confignet_tpu_torch.core.initializers import init_kernel_
 from confignet_tpu_torch.ops import conv_double_backward
-from confignet_tpu_torch.ops.conv3d import Conv3d, channels_first_padded, conv_channels_last, promote
+from confignet_tpu_torch.ops.conv3d import (Conv3d, channels_first_padded, conv_channels_first,
+                                           conv_channels_last, promote)
 from confignet_tpu_torch.ops.norms import adain_modulate, layer_style, std_instance_norm
 from confignet_tpu_torch.ops.upconv import UpConv
 
@@ -79,7 +80,8 @@ class Conv2d(nn.Module):
     ``padding`` "SAME" (TF rule) or "VALID".  ``groups`` is flax's
     ``feature_group_count``: a depthwise kernel (kh, kw, 1, C) there is
     (C, 1, kh, kw) here.  With ``use_bias=False`` there is no bias
-    parameter, as in flax."""
+    parameter, as in flax.  ``forward(x, channels_first=True)`` takes and
+    gives (B, C, H, W) instead: the same convolution."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  stride: int = 1, padding: str = "SAME", dtype: Optional[torch.dtype] = None,
@@ -99,10 +101,10 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
         x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
-        return conv_channels_last(x, weight, bias, stride=self.stride, padding=self.padding,
-                                  groups=self.groups)
+        conv = conv_channels_first if channels_first else conv_channels_last
+        return conv(x, weight, bias, stride=self.stride, padding=self.padding, groups=self.groups)
 
 
 class DiscrConv2d(Conv2d):
@@ -114,7 +116,7 @@ class DiscrConv2d(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
-        xc, conv_pad = channels_first_padded(x, weight, self.stride, self.padding)
+        xc, conv_pad = channels_first_padded(x.movedim(-1, 1), weight, self.stride, self.padding)
         out = conv_double_backward.conv2d(xc, weight, bias, self.stride, conv_pad, self.groups)
         return out.movedim(1, -1).contiguous()
 

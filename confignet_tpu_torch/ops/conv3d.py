@@ -7,7 +7,10 @@ the channels-first view ``x.movedim(-1, 1)`` (which in memory is
 ``channels_last``/``channels_last_3d``, so no copy is made) and pads the way
 TF/XLA "SAME" does: for an even kernel the extra row goes AFTER (a 4x4
 kernel pads 1 before and 2 after), which ``padding="same"`` in torch would
-not reproduce.  The TPU-only ``zdecomp`` lowering is not ported.
+not reproduce.  :func:`conv_channels_first` is the same convolution on a
+(B, C, *spatial) tensor, for a module that keeps its activations
+channels-first inside (the float32 ResNet50 trunk).  The TPU-only
+``zdecomp`` lowering is not ported.
 """
 from __future__ import annotations
 
@@ -44,22 +47,29 @@ def conv_channels_last(x: torch.Tensor, weight: torch.Tensor, bias: Optional[tor
     """x (B, *spatial, Ci) with a torch-layout kernel (Co, Ci / groups, *taps)
     -> contiguous (B, *spatial', Co).  ``padding``: "SAME" (TF rule), "VALID"
     or an int applied on both sides of every spatial axis."""
-    xc, conv_pad = channels_first_padded(x, weight, stride, padding)
-    conv = F.conv2d if x.ndim == 4 else F.conv3d
-    out = conv(xc, weight, bias, stride=stride, padding=conv_pad, groups=groups)
+    out = conv_channels_first(x.movedim(-1, 1), weight, bias, stride, padding, groups)
     return out.movedim(1, -1).contiguous()
 
 
-def channels_first_padded(x: torch.Tensor, weight: torch.Tensor, stride: int,
+def conv_channels_first(xc: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None, stride: int = 1,
+                        padding: Union[str, int] = "SAME", groups: int = 1) -> torch.Tensor:
+    """:func:`conv_channels_last` on xc (B, Ci, *spatial) -> (B, Co, *spatial'),
+    in ``xc``'s memory format."""
+    xc, conv_pad = channels_first_padded(xc, weight, stride, padding)
+    conv = F.conv2d if xc.ndim == 4 else F.conv3d
+    return conv(xc, weight, bias, stride=stride, padding=conv_pad, groups=groups)
+
+
+def channels_first_padded(xc: torch.Tensor, weight: torch.Tensor, stride: int,
                           padding: Union[str, int]):
-    """(the channels-first view of ``x``, padded with ``F.pad`` where SAME
-    is asymmetric; the padding left to the convolution) for
-    :func:`conv_channels_last`'s arguments."""
-    rank = x.ndim - 2
-    xc = x.movedim(-1, 1)
+    """(``xc`` (B, C, *spatial), padded with ``F.pad`` where SAME is
+    asymmetric; the padding left to the convolution) for
+    :func:`conv_channels_first`'s arguments."""
+    rank = xc.ndim - 2
     conv_pad: Union[int, Sequence[int]] = 0
     if padding == "SAME":
-        pads = [_same_pads(x.shape[1 + i], weight.shape[2 + i], stride) for i in range(rank)]
+        pads = [_same_pads(xc.shape[2 + i], weight.shape[2 + i], stride) for i in range(rank)]
         if all(lo == hi for lo, hi in pads):
             conv_pad = tuple(lo for lo, _ in pads)
         else:

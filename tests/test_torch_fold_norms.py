@@ -12,13 +12,20 @@ In float64 the fold is exact to 1e-12; in float32 the folded trunk sits as
 close to the float64 trunk as the unfolded one does (both about 5e-7
 relative), so "within rounding" below is 2e-6 relative.
 
-The test marked ``gpu`` renders two 512px requests of the bulk cell's shape
-(chunks of 32, padded tails) through a folded and an unfolded server, with
-random norm statistics, and holds them to the cell's checks; it imports no
-JAX, so on a machine without it:
+The server's float32 trunk runs channels-first inside
+(``models/backbones/resnet.py``); :func:`force_channels_last` puts a
+snapshot's trunk through the channels-last formula instead, for holding the
+route against it.
+
+The tests marked ``gpu`` render two 512px requests of the bulk cell's shape
+(chunks of 32, padded tails) through a folded and an unfolded server, and
+through the folded server on its channels-first route and the same snapshot
+forced channels-last, with random norm statistics, and hold them to the
+cell's checks; they import no JAX, so on a machine without it:
 python -m pytest --noconftest -m gpu tests/test_torch_fold_norms.py
 """
 import copy
+import functools
 import json
 import os
 
@@ -28,6 +35,7 @@ import torch
 from torch import nn
 
 from helpers import TINY_FIRST_STAGE_CONFIG
+from confignet_tpu_torch.core import graphs, tracing
 from confignet_tpu_torch.models.backbones.resnet import (FrozenBatchNorm, GroupNorm,
                                                          fold_frozen_norms, resnet50_preprocess)
 from confignet_tpu_torch.models.blocks import Conv2d
@@ -68,6 +76,18 @@ def scale_heads(encoder: nn.Module, photos_u8: np.ndarray) -> None:
     for head in (encoder.feature_to_latent, encoder.rotation_regressor):
         w = torch.randn(head.weight.shape, generator=g)
         head.weight.copy_(w / (w.square().mean().sqrt() * head.weight.shape[1] ** 0.5 * rms))
+
+
+def force_channels_last(encoder: nn.Module) -> None:
+    """``encoder``'s trunk through the channels-last formula from now on,
+    whatever its dtype (a bound method, so a deep copy keeps to its own
+    trunk)."""
+    trunk = encoder.resnet
+    trunk.forward = functools.partial(trunk.features, channels_first=False)
+
+
+def _route_ticks() -> float:
+    return tracing.totals.get("resnet.channels_first", 0)
 
 
 def _photos(n, seed, size=128):
@@ -197,6 +217,22 @@ def test_refresh_takes_new_norm_statistics(model):
         model.real_encoder.load_state_dict(saved)
 
 
+def test_server_encoder_runs_channels_first(model):
+    """The server's folded float32 trunk takes the channels-first route once
+    a chunk (every chunk runs eagerly on the CPU), and its latents are the
+    channels-last formula's within rounding."""
+    server = ConfigNetServer(model, chunk=CHUNK, device="cpu")
+    imgs = _photos(5, 11)  # two chunks of 4
+    before = _route_ticks()
+    lat, rot = server.encode(imgs)
+    assert _route_ticks() == before + 2
+    force_channels_last(server._encoder)
+    want_lat, want_rot = server.encode(imgs)
+    assert _route_ticks() == before + 2
+    assert np.std(lat[:, 0]) > 0
+    assert _rel(lat, want_lat) < ROUNDING and _rel(rot, want_rot) < ROUNDING
+
+
 def test_group_norm_trunk_folds_nothing():
     model = ConfigNet(dict(TINY_FIRST_STAGE_CONFIG, encoder_norm="group"), device="cpu")
     scale_heads(model.real_encoder, _photos(4, 10))
@@ -236,13 +272,10 @@ def _bulk_model_config():
         return json.load(f)["model"]
 
 
-@pytest.mark.gpu
-def test_card_bulk_renders_folded_against_unfolded():
-    """The bulk cell's model at 512px, f32 with TF32 off, random norm
-    statistics: two requests (150 photos at the encoder's poses, 77 at given
-    poses; chunks of 32, padded tails) through the folded server and a server
-    whose encoder keeps its norms, within the cell's checks
-    (``worst_photo_abs_u8`` < 0.03, no byte two steps off)."""
+def _card_bulk_model():
+    """The bulk cell's model at 512px with random norm statistics, its 227
+    photos, and its two requests: 150 photos at the encoder's poses, 77 at
+    given poses (chunks of 32, padded tails)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,28 +284,71 @@ def test_card_bulk_renders_folded_against_unfolded():
     randomize_norms(model.real_encoder, seed=8)
     photos = _photos(150 + 77, 9, size=512)
     scale_heads(model.real_encoder, photos[:8])
-    folded = ConfigNetServer(model, chunk=32)
-    unfolded = ConfigNetServer(model, chunk=32)
-    unfolded._encoder = copy.deepcopy(model.real_encoder).eval()
-    assert not any(isinstance(m, FrozenBatchNorm) for m in folded._encoder.modules())
-
     rng = np.random.default_rng(10)
     n_blend = model.config["facemodel_inputs"]["blendshape_values"][0]
     rotations = (rng.uniform(-1, 1, (77, 3)) * [np.pi / 6, np.pi / 18, 0]).astype(np.float32)
     requests = [(photos[:150], rng.normal(size=(150, n_blend)).astype(np.float32), None),
                 (photos[150:], rng.normal(size=(77, n_blend)).astype(np.float32), rotations)]
+    return model, photos, requests
+
+
+def _compare_servers(got_server, want_server, photos, requests):
+    """(the worst photo's mean byte gap, the bytes two or more steps off,
+    the latents' relative gap) of two servers' renders and latents."""
     worst, far, total = 0.0, 0, 0
     for imgs, value, rots in requests:
-        got = folded.render_with_attribute(imgs, "blendshape_values", value, rots)
-        want = unfolded.render_with_attribute(imgs, "blendshape_values", value, rots)
+        got = got_server.render_with_attribute(imgs, "blendshape_values", value, rots)
+        want = want_server.render_with_attribute(imgs, "blendshape_values", value, rots)
         assert got.shape == want.shape == imgs.shape and got.std() > 0
         gap = np.abs(got.astype(np.int16) - want.astype(np.int16))
         worst = max(worst, float(gap.reshape(len(gap), -1).mean(axis=1).max()))
         far += int((gap > 1).sum())
         total += gap.size
-    lat_f, _ = folded.encode(photos[:40])
-    lat_u, _ = unfolded.encode(photos[:40])
+    lat_got, _ = got_server.encode(photos[:40])
+    lat_want, _ = want_server.encode(photos[:40])
+    assert np.std(lat_got[:, 0]) > 0
     print(f"worst_photo_abs_u8 {worst:.6f} share_off_by_2_pct {100.0 * far / total:.6f} "
-          f"latents rel {_rel(lat_f, lat_u):.3e}")
-    assert np.std(lat_f[:, 0]) > 0
+          f"latents rel {_rel(lat_got, lat_want):.3e}")
+    return worst, far, _rel(lat_got, lat_want)
+
+
+@pytest.mark.gpu
+def test_card_bulk_renders_folded_against_unfolded():
+    """The bulk cell's model at 512px, f32 with TF32 off, random norm
+    statistics: two requests (150 photos at the encoder's poses, 77 at
+    given poses; chunks of 32, padded tails) through the folded server and a
+    server whose encoder keeps its norms, within the cell's checks
+    (``worst_photo_abs_u8`` < 0.03, no byte two steps off)."""
+    model, photos, requests = _card_bulk_model()
+    folded = ConfigNetServer(model, chunk=32)
+    unfolded = ConfigNetServer(model, chunk=32)
+    unfolded._encoder = copy.deepcopy(model.real_encoder).eval()
+    assert not any(isinstance(m, FrozenBatchNorm) for m in folded._encoder.modules())
+    worst, far, _ = _compare_servers(folded, unfolded, photos, requests)
     assert worst < 0.03 and far == 0
+
+
+@pytest.mark.gpu
+def test_card_bulk_renders_channels_first_against_channels_last():
+    """The bulk cell's folded server, whose float32 trunk runs
+    channels-first, against the same snapshot forced through the
+    channels-last formula: the same two requests within
+    ``worst_photo_abs_u8`` < 0.002 and no byte two steps off, latents within
+    1e-5 relative.  A captured encoder call replays bit-equal to its eager
+    call, and the route's counter ticks at the capture, never at a replay."""
+    model, photos, requests = _card_bulk_model()
+    route = ConfigNetServer(model, chunk=32)
+    formula = ConfigNetServer(model, chunk=32)
+    force_channels_last(formula._encoder)
+    worst, far, lat_gap = _compare_servers(route, formula, photos, requests)
+    assert worst < 0.002 and far == 0 and lat_gap < 1e-5
+
+    imgs = photos[:64]  # two full chunks: a key captured above
+    before = _route_ticks()
+    replayed = route.encode(imgs)
+    assert _route_ticks() == before
+    with graphs.eager():
+        eager = route.encode(imgs)
+    assert _route_ticks() == before + 2
+    for a, b in zip(replayed, eager):
+        np.testing.assert_array_equal(a, b)
