@@ -312,6 +312,7 @@ from confignet_tpu_torch.ops.launches import (LAUNCH_NAMES, launch_counts, unit_
 from confignet_tpu_torch.ops.adain_cuda import (
     adain_route, device_limits, fused_adain_backward, fused_adain_backward_plain,
     fused_adain_forward, fused_adain_plain_with_stats)
+from confignet_tpu_torch.ops.epilogue_cuda import conv_epilogue, conv_epilogue_plain
 from confignet_tpu_torch.ops.warp import affine_warp
 from confignet_tpu_torch.parallel import create_mesh
 from confignet_tpu_torch.runtime import gather_images, native_available
@@ -332,6 +333,7 @@ from confignet_tpu_torch.training.second_stage import ConfigNet
 ADAIN_SITES_256 = tuple(adain_sites(dict(DEFAULT_CONFIG, output_shape=(256, 256, 3))))
 ADAIN_SITE_512 = adain_sites(dict(DEFAULT_CONFIG, output_shape=(512, 512, 3)))[-1]
 SERVE_CHUNK = 32
+TRUNK_EPILOGUES = 1 + 16 * 3  # a folded ResNet50 call's epilogue launches: stem, 3 a block
 TRAIN_BATCH = 24  # the D updates' generator batch; the G step renders two halves of 12
 TRAIN_STEPS = 3
 FINE_TUNE_ITERS = 50  # bench_train.py's fine-tune flow: one photo, 50 iterations
@@ -574,6 +576,57 @@ def adain_phase(batch: int, positions: int, channels: int, dtype, records: list)
     if not (repeat_equal and checked <= tol and stats_err <= 1e-4 * max(
             1.0, want_stats.abs().max().item())):
         raise AssertionError(f"AdaIN kernel disagrees with its plain version: {rec}")
+
+
+def epilogue_shapes(size: int) -> list:
+    """(form, (C, H, W)) of each distinct epilogue launch of a folded
+    ResNet50 on ``size``-px photos: the stem's ReLU, then per stage the
+    ReLU after conv1 and conv2, the first block's end with its projection
+    and the other blocks' ends with the identity shortcut."""
+    shapes = [("relu", (64, size // 2, size // 2))]
+    side = size // 4
+    for stage, width in enumerate((64, 128, 256, 512)):
+        side = side if stage == 0 else side // 2
+        shapes += [("relu", (width, side, side)), ("shortcut", (4 * width, side, side)),
+                   ("residual", (4 * width, side, side))]
+    return shapes
+
+
+def epilogue_phase(size: int, batch: int, records: list, timed: bool):
+    """The epilogue kernel against its plain version, which on the card is
+    ATen's separate passes it replaces, bit for bit, at every shape a
+    folded trunk launches it on ``size``-px photos; with ``timed``, each
+    shape timed beside the plain version, with its achieved TB/s."""
+    for i, (form, chw) in enumerate(epilogue_shapes(size)):
+        shape = (batch, *chw)
+        gen = torch.Generator(device="cuda").manual_seed(1000 * size + 10 * i + batch)
+        y = torch.randn(shape, generator=gen, device="cuda")
+        bias = torch.randn(chw[0], generator=gen, device="cuda")
+        extra = {}
+        if form == "residual":
+            extra["residual"] = torch.randn(shape, generator=gen, device="cuda")
+        elif form == "shortcut":
+            extra.update(shortcut=torch.randn(shape, generator=gen, device="cuda"),
+                         shortcut_bias=torch.randn(chw[0], generator=gen, device="cuda"))
+        want = conv_epilogue_plain(y, bias, **extra)
+        got = conv_epilogue(y.clone(), bias, **extra)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        rec = dict(kernel="conv_epilogue_cuda", form=form, size=size, batch=batch,
+                   dtype="float32", shape=list(shape), bit_equal=equal)
+        if timed:
+            n_bytes = 4 * y.numel() * (2 + len([t for t in extra.values() if t.ndim == 4]))
+            bound_ms, bound_by = bound(n_bytes, 3 * y.numel())
+            kernel_device = device_ms(lambda: conv_epilogue(y, bias, **extra))
+            rec.update(ms=time_ms(lambda: conv_epilogue(y, bias, **extra)),
+                       device_ms=kernel_device, tb_per_s=n_bytes / kernel_device / 1e9,
+                       plain_ms=time_ms(lambda: conv_epilogue_plain(y, bias, **extra)),
+                       plain_device_ms=device_ms(lambda: conv_epilogue_plain(y, bias, **extra)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+        records.append(rec)
+        print("phase " + json.dumps(rec), flush=True)
+        if not equal:
+            raise AssertionError(f"epilogue kernel disagrees with its plain version: {rec}")
 
 
 def transpose_phase(batch: int, dtype, records: list):
@@ -3740,6 +3793,11 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         for positions, channels in ADAIN_SITES_256:
             adain_phase(1, positions, channels, dtype, records)
+    # the float32 servers' folded encoders: a full chunk (timed), step 5's and
+    # step 16's chunks of 8, the fine-tunes' refreshed servers' single photo
+    for size in (256, SIZE_512):
+        for batch in (SERVE_CHUNK, 8, 1):
+            epilogue_phase(size, batch, records, timed=batch == SERVE_CHUNK)
     torch.cuda.empty_cache()
 
     # -- 4. serving at full width ----------------------------------------------
@@ -3805,12 +3863,17 @@ def main() -> int:
     model_p = ConfigNet(serving_config("float32", rotation_resample="gather", adain_impl="plain"))
     model_p.set_weights(model_k.get_weights())
     before = (rotate_3d_grid_forward.launches, fused_adain_forward.launches)
+    epilogues = conv_epilogue.launches
     out_p = ConfigNetServer(model_p, chunk=8).render_with_attribute(photos[:8], "blendshape_values", blend)
     if (rotate_3d_grid_forward.launches, fused_adain_forward.launches) != before:
         raise AssertionError("the plain-path server launched a kernel")
     out_k = ConfigNetServer(model_k, chunk=8).render_with_attribute(photos[:8], "blendshape_values", blend)
     if (rotate_3d_grid_forward.launches - before[0], fused_adain_forward.launches - before[1]) != (1, 6):
         raise AssertionError("the kernel-path server did not go through the kernels")
+    # both servers' folded float32 encoders, one chunk each (eager: its first call)
+    if conv_epilogue.launches - epilogues != 2 * TRUNK_EPILOGUES:
+        raise AssertionError(f"{conv_epilogue.launches - epilogues} epilogue launches for two "
+                             f"encoder chunks, not {2 * TRUNK_EPILOGUES}")
     e2e = float(np.mean(np.abs(out_k.astype(int) - out_p.astype(int))))
     print(f"e2e float32 kernel vs plain path: mean abs uint8 difference {e2e:.4f} "
           f"(max {int(np.abs(out_k.astype(int) - out_p.astype(int)).max())}), bound 1.0", flush=True)

@@ -35,9 +35,11 @@ thread: a benchmark's traced slice.  Counters: ``rows.requested`` and
 ``graph.first_call_s`` (the host seconds of the ``graph.first_call``
 spans), ``conv.double_backward`` (second-order calls of the
 discriminator trunks' convolutions, ops/conv_double_backward.py: 1 a conv
-on each R1 head's path) and ``resnet.channels_first`` (ResNet50 trunk calls
-that run channels-first inside, models/backbones/resnet.py: 1 a call).  The
-last two tick on the host at an eager call and at a capture, never at a
+on each R1 head's path), ``resnet.channels_first`` (ResNet50 trunk calls
+that run channels-first inside, models/backbones/resnet.py: 1 a call) and
+``resnet.fused_epilogue`` (those of them whose folded convolutions run
+their bias, shortcut and ReLU as one epilogue pass: 1 a call).  The last
+three tick on the host at an eager call and at a capture, never at a
 replay, so tests read them and no benchmark metric does.
 """
 from __future__ import annotations

@@ -19,7 +19,11 @@ on each side of every convolution.  A bfloat16 trunk runs channels-last,
 where the tensor cores' kernels are native, and so does a call that records
 a backward: cuDNN's float32 weight gradients of the 1x1 convolutions are
 several times slower on NCHW tensors.  One forward serves both layouts
-(``channels_first`` below).
+(``channels_first`` below).  On that channels-first route a convolution
+whose norm was folded into it (:func:`fold_frozen_norms`, the server's
+snapshot) runs without its bias, and one pass adds the bias, the block's
+shortcut and the ReLU after it (``ops/epilogue_cuda.conv_epilogue``): the
+same float32 additions in the same order as the separate passes.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch import nn
 from confignet_tpu_torch.core import tracing
 from confignet_tpu_torch.core.constants import device_constant
 from confignet_tpu_torch.models.blocks import Conv2d
+from confignet_tpu_torch.ops.epilogue_cuda import conv_epilogue
 
 # the BGR ImageNet means of Keras' 'caffe' preprocessing
 IMAGENET_BGR_MEAN = (103.939, 116.779, 123.68)
@@ -121,6 +126,14 @@ def _conv_norm(conv: Conv2d, norm: nn.Module, x: torch.Tensor,
     return y if isinstance(norm, nn.Identity) else norm(y, channels_first)
 
 
+def _folded(norms: Sequence[nn.Module], channels_first: bool) -> bool:
+    """Whether convolutions followed by ``norms`` take the fused epilogue:
+    every norm folded (:func:`fold_frozen_norms`), on the channels-first
+    route, autograd off (the kernel has no backward)."""
+    return (channels_first and not torch.is_grad_enabled()
+            and all(isinstance(norm, nn.Identity) for norm in norms))
+
+
 def _pad_spatial(x: torch.Tensor, pad: int, channels_first: bool,
                  value: float = 0.0) -> torch.Tensor:
     pads = (pad,) * 4 if channels_first else (0, 0) + (pad,) * 4
@@ -148,6 +161,11 @@ class BottleneckBlock(nn.Module):
         self.bn3 = _resnet_norm(norm, width * 4)
 
     def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
+        norms = (self.bn1, self.bn2, self.bn3)
+        if self.project_shortcut:
+            norms += (self.shortcut_bn,)
+        if _folded(norms, channels_first):
+            return self._fused_forward(x)
         shortcut = x
         if self.project_shortcut:
             shortcut = _conv_norm(self.shortcut_conv, self.shortcut_bn, x, channels_first)
@@ -155,6 +173,18 @@ class BottleneckBlock(nn.Module):
         y = torch.relu(_conv_norm(self.conv2, self.bn2, y, channels_first))
         y = _conv_norm(self.conv3, self.bn3, y, channels_first)
         return torch.relu(y + shortcut)
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The folded block on channels-first ``x``: each convolution without
+        its bias, then one epilogue pass (three a block)."""
+        y = conv_epilogue(self.conv1(x, True, add_bias=False), self.conv1.bias)
+        y = conv_epilogue(self.conv2(y, True, add_bias=False), self.conv2.bias)
+        y = self.conv3(y, True, add_bias=False)
+        if not self.project_shortcut:
+            return conv_epilogue(y, self.conv3.bias, residual=x)
+        shortcut = self.shortcut_conv(x, True, add_bias=False)
+        return conv_epilogue(y, self.conv3.bias, shortcut=shortcut,
+                             shortcut_bias=self.shortcut_conv.bias)
 
 
 class ResNet50(nn.Module):
@@ -181,10 +211,14 @@ class ResNet50(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, 2048).  A float32 trunk called with autograd
         off transposes its 3-channel input once and runs channels-first from
-        the stem to the pooling; any other call runs channels-last."""
+        the stem to the pooling; any other call runs channels-last.  A
+        folded trunk on that route runs each convolution's bias, shortcut
+        and ReLU as one epilogue pass."""
         channels_first = _computes_in_float32(self.stem_conv) and not torch.is_grad_enabled()
         if channels_first:
             tracing.count("resnet.channels_first")
+            if _folded((self.stem_bn,), channels_first):
+                tracing.count("resnet.fused_epilogue")
             x = x.movedim(-1, 1).contiguous()
         return self.features(x, channels_first)
 
@@ -192,7 +226,10 @@ class ResNet50(nn.Module):
         """The pooled features of (B, H, W, 3), or of (B, 3, H, W) with
         ``channels_first``."""
         x = _pad_spatial(x, 3, channels_first)
-        x = torch.relu(_conv_norm(self.stem_conv, self.stem_bn, x, channels_first))
+        if _folded((self.stem_bn,), channels_first):
+            x = conv_epilogue(self.stem_conv(x, True, add_bias=False), self.stem_conv.bias)
+        else:
+            x = torch.relu(_conv_norm(self.stem_conv, self.stem_bn, x, channels_first))
         x = _pad_spatial(x, 1, channels_first, float("-inf"))
         if channels_first:
             x = F.max_pool2d(x, 3, stride=2)

@@ -81,7 +81,9 @@ class Conv2d(nn.Module):
     ``feature_group_count``: a depthwise kernel (kh, kw, 1, C) there is
     (C, 1, kh, kw) here.  With ``use_bias=False`` there is no bias
     parameter, as in flax.  ``forward(x, channels_first=True)`` takes and
-    gives (B, C, H, W) instead: the same convolution."""
+    gives (B, C, H, W) instead: the same convolution.  ``forward(x,
+    add_bias=False)`` leaves the bias out, for a caller that adds it in a
+    fused epilogue (``models/backbones/resnet.py``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  stride: int = 1, padding: str = "SAME", dtype: Optional[torch.dtype] = None,
@@ -101,8 +103,9 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor, channels_first: bool = False) -> torch.Tensor:
-        x, weight, bias = promote(self.dtype, x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, channels_first: bool = False,
+                add_bias: bool = True) -> torch.Tensor:
+        x, weight, bias = promote(self.dtype, x, self.weight, self.bias if add_bias else None)
         conv = conv_channels_first if channels_first else conv_channels_last
         return conv(x, weight, bias, stride=self.stride, padding=self.padding, groups=self.groups)
 

@@ -21,6 +21,17 @@ Trunks are tiny (two blocks in the first stage, one in each other, width
 16), at an odd and an even input size: an odd size gives odd maps to the
 strided 1x1 convolutions, whose SAME output rounds up.  The convolution
 itself is held on asymmetric SAME pads below.
+
+A folded trunk called with autograd off runs each convolution without its
+bias and one epilogue pass after it (``ops/epilogue_cuda.conv_epilogue``:
+the bias, the block's shortcut, the ReLU; the plain version here on the
+CPU).  Its blocks are held bit for bit against the separate passes they
+replace, as ATen makes them on the card: the convolution's output, its bias
+added in a pass of its own, ReLU, ``y + shortcut``, ReLU.  (On the CPU a
+float32 convolution with a bias may add it inside its own sums, so there
+the bias is added as ATen adds it on the card; in float64 the two agree.)
+Only that route calls the epilogue: a trunk with norms, a bfloat16 trunk
+and a call recording a backward never do.
 """
 import statistics
 
@@ -28,15 +39,19 @@ import pytest
 import torch
 
 from confignet_tpu_torch.core import tracing
-from confignet_tpu_torch.models.backbones.resnet import (FrozenBatchNorm, ResNet50,
-                                                         fold_frozen_norms)
+from confignet_tpu_torch.models.backbones import resnet
+from confignet_tpu_torch.models.backbones.resnet import (BottleneckBlock, FrozenBatchNorm,
+                                                         ResNet50, fold_frozen_norms)
 from confignet_tpu_torch.models.blocks import Conv2d
 
 torch.set_num_threads(1)
 
 COUNTER = "resnet.channels_first"
+FUSED = "resnet.fused_epilogue"
 # the stem's, three a block's (5 blocks) and four projections': as many convolutions
 N_NORMS = 1 + 5 * 3 + 4
+# epilogue passes of a folded trunk's call: the stem's and three a block's
+N_EPILOGUES = 1 + 5 * 3
 # relative gaps, channels-first against channels-last: (forward, input
 # gradient, worst parameter gradient)
 LIMITS = {"frozen": (2e-6, 1e-5, 2e-5), "folded": (2e-6, 1e-5, 2e-5),
@@ -48,8 +63,23 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def _ticks() -> float:
-    return tracing.totals.get(COUNTER, 0)
+def _ticks(counter: str = COUNTER) -> float:
+    return tracing.totals.get(counter, 0)
+
+
+@pytest.fixture
+def epilogue_calls(monkeypatch):
+    """The list of the trunk's epilogue calls, one form name a call."""
+    calls = []
+
+    def counted(y, bias, residual=None, shortcut=None, shortcut_bias=None):
+        calls.append("residual" if residual is not None else
+                     "shortcut" if shortcut is not None else "relu")
+        return wrapped(y, bias, residual, shortcut, shortcut_bias)
+
+    wrapped = resnet.conv_epilogue
+    monkeypatch.setattr(resnet, "conv_epilogue", counted)
+    return calls
 
 
 def tiny_trunk(norm: str, dtype=None, seed: int = 0) -> ResNet50:
@@ -121,30 +151,40 @@ def test_channels_first_formula_matches_channels_last(norm, size):
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
 @pytest.mark.parametrize("norm", ["frozen", "folded", "group"])
-def test_float32_call_without_autograd_takes_the_route(norm, mode):
+def test_float32_call_without_autograd_takes_the_route(norm, mode, epilogue_calls):
     """With autograd off a float32 call is the channels-first formula, bit
-    for bit, and ticks the counter once."""
+    for bit, and ticks the counter once; a folded trunk's call also runs
+    its epilogue passes (the stem's and three a block's) and ticks the
+    fused counter once, a trunk with norms runs none."""
     trunk = tiny_trunk(norm)
     x = _inputs(61)
-    before = _ticks()
+    before, fused_before = _ticks(), _ticks(FUSED)
     with getattr(torch, mode)():
         got = trunk(x)
         assert _ticks() == before + 1
         want = channels_first(trunk)(x)
     assert _ticks() == before + 1
     assert torch.equal(got, want)
+    folded = norm == "folded"
+    assert _ticks(FUSED) == fused_before + folded
+    assert len(epilogue_calls) == 2 * N_EPILOGUES * folded
+    if folded:  # a call's: the stem's, then three a block's, ending with its shortcut
+        block = ["relu", "relu", "shortcut"]
+        assert epilogue_calls[:N_EPILOGUES] == (["relu"] + block + ["relu", "relu", "residual"]
+                                                + block * 3)
 
 
 @pytest.mark.parametrize("norm", ["frozen", "folded", "group"])
-def test_call_recording_a_backward_keeps_channels_last(norm):
+def test_call_recording_a_backward_keeps_channels_last(norm, epilogue_calls):
     """A float32 call with autograd on runs the channels-last formula, bit
-    for bit, and does not tick the counter; the gradients are its own."""
+    for bit, and does not tick the counters nor call the epilogue; the
+    gradients are its own."""
     trunk = tiny_trunk(norm)
     x = _inputs(61)
-    before = _ticks()
+    before, fused_before = _ticks(), _ticks(FUSED)
     y, gx, grads = _run(trunk, trunk, x)
     want_y, want_gx, want_grads = _run(trunk, channels_last(trunk), x)
-    assert _ticks() == before
+    assert _ticks() == before and _ticks(FUSED) == fused_before and not epilogue_calls
     assert torch.equal(y, want_y) and torch.equal(gx, want_gx)
     assert all(torch.equal(grads[k], want_grads[k]) for k in grads)
 
@@ -172,22 +212,22 @@ def test_float32_route_runs_nchw_contiguous(norm):
 
 
 @pytest.mark.parametrize("norm", ["frozen", "group"])
-def test_bfloat16_trunk_keeps_channels_last(norm):
+def test_bfloat16_trunk_keeps_channels_last(norm, epilogue_calls):
     """A trunk computing in bfloat16 runs the channels-last formula, bit for
-    bit, and its convolutions see channels-last tensors; the counter does
-    not tick."""
+    bit, and its convolutions see channels-last tensors; the counters do
+    not tick and the epilogue is not called."""
     trunk = tiny_trunk(norm, dtype=torch.bfloat16)
     inputs = []
     hooks = [m.register_forward_pre_hook(lambda m, args: inputs.append((m, args[0])))
              for m in trunk.modules() if isinstance(m, Conv2d)]
     x = _inputs(61)
-    before = _ticks()
+    before, fused_before = _ticks(), _ticks(FUSED)
     with torch.no_grad():
         got = trunk(x)
         for h in hooks:
             h.remove()
         want = channels_last(trunk)(x)
-    assert _ticks() == before
+    assert _ticks() == before and _ticks(FUSED) == fused_before and not epilogue_calls
     assert torch.equal(got, want)
     assert inputs and all(t.shape[-1] == m.weight.shape[1] for m, t in inputs)
 
@@ -195,13 +235,60 @@ def test_bfloat16_trunk_keeps_channels_last(norm):
 @pytest.mark.parametrize("calls", [1, 3])
 @pytest.mark.parametrize("norm", ["frozen", "folded", "group"])
 def test_counter_ticks_once_a_float32_call(norm, calls):
+    """``resnet.channels_first`` ticks once a call; ``resnet.fused_epilogue``
+    once a folded trunk's call, never a trunk's with norms."""
     trunk = tiny_trunk(norm)
     x = _inputs(33)
-    before = _ticks()
+    before, fused_before = _ticks(), _ticks(FUSED)
     with torch.no_grad():
         for _ in range(calls):
             trunk(x)
     assert _ticks() == before + calls
+    assert _ticks(FUSED) == fused_before + calls * (norm == "folded")
+
+
+def _separate_passes(block: BottleneckBlock, x: torch.Tensor) -> torch.Tensor:
+    """The folded block's channels-first forward as the separate passes the
+    epilogue replaces, each convolution's bias added as ATen adds it on the
+    card (a pass after the convolution): ReLU, ``y + shortcut``, ReLU."""
+    def conv(c, t):
+        return c(t, True, add_bias=False) + c.bias[:, None, None]
+
+    shortcut = conv(block.shortcut_conv, x) if block.project_shortcut else x
+    y = torch.relu(conv(block.conv1, x))
+    y = torch.relu(conv(block.conv2, y))
+    return torch.relu(conv(block.conv3, y) + shortcut)
+
+
+@pytest.mark.parametrize("size", [61, 64])
+@pytest.mark.parametrize("project", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_block_is_the_separate_passes(dtype, project, size, epilogue_calls):
+    """A folded block on the route (three epilogue passes, the last with the
+    identity or the projection shortcut) equals the separate passes bit for
+    bit; in float64 also the convolutions with their biases."""
+    torch.manual_seed(5)
+    features = 16 if project else 32  # an identity block keeps its width, 4 x 8
+    block = BottleneckBlock(features, 8, stride=2 if project else 1, project_shortcut=project)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, Conv2d):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g))
+        for name in ("bn1", "bn2", "bn3") + (("shortcut_bn",) if project else ()):
+            setattr(block, name, torch.nn.Identity())
+        block = block.to(dtype)
+        x = torch.randn((2, features, size, size), generator=g, dtype=dtype)
+        got = block(x, channels_first=True)
+        want = _separate_passes(block, x)
+    assert epilogue_calls == ["relu", "relu", "shortcut" if project else "residual"]
+    assert got.dtype == dtype and (got == 0).any() and (got > 1).any()
+    assert torch.equal(got, want)
+    if dtype == torch.float64:
+        with torch.no_grad():
+            shortcut = block.shortcut_conv(x, True) if project else x
+            y = torch.relu(block.conv2(torch.relu(block.conv1(x, True)), True))
+            assert torch.equal(got, torch.relu(block.conv3(y, True) + shortcut))
 
 
 def test_float64_trunk_takes_the_route_exactly():
